@@ -13,7 +13,7 @@ import numpy as np
 import torch
 
 from cuvs_tpu_torch.distance.pairwise import normalize_metric
-from cuvs_tpu_torch.neighbors import brute_force, ivf_common, ivf_flat
+from cuvs_tpu_torch.neighbors import brute_force, ivf_common, ivf_flat, ivf_pq, ivf_rabitq
 
 
 def _tensor(a, device, dtype=None):
@@ -29,6 +29,20 @@ def _tensor(a, device, dtype=None):
     return t.to(device)
 
 
+def _words(a, device):
+    """uint32 code words as int32 tensors with the same bits (core.bitpack)."""
+    if a is None:
+        return None
+    return torch.from_numpy(np.array(a, np.uint32).view(np.int32)).to(device)
+
+
+def _lists(offsets, sizes, ids, labels, device) -> ivf_common.SortedLists:
+    return ivf_common.SortedLists(offsets=_tensor(offsets, device, torch.int32),
+                                  sizes=_tensor(sizes, device, torch.int32),
+                                  labels=_tensor(labels, device, torch.int32),
+                                  ids=_tensor(ids, device, torch.int32))
+
+
 def brute_force_index_from_numpy(dataset, norms, q_scale, metric, device="cpu"
                                  ) -> brute_force.Index:
     """The port's brute-force index over a reference index's arrays."""
@@ -42,12 +56,49 @@ def ivf_flat_index_from_numpy(centers, center_norms, sorted_data, sorted_norms, 
                               ) -> ivf_flat.Index:
     """The port's IVF-Flat index over a reference index's arrays (the list
     arrays are ``index.lists.offsets/sizes/ids/labels``)."""
-    lists = ivf_common.SortedLists(offsets=_tensor(offsets, device, torch.int32),
-                                   sizes=_tensor(sizes, device, torch.int32),
-                                   labels=_tensor(labels, device, torch.int32),
-                                   ids=_tensor(ids, device, torch.int32))
     return ivf_flat.Index(centers=_tensor(centers, device), center_norms=_tensor(center_norms, device),
                           sorted_data=_tensor(sorted_data, device),
-                          sorted_norms=_tensor(sorted_norms, device), lists=lists,
+                          sorted_norms=_tensor(sorted_norms, device),
+                          lists=_lists(offsets, sizes, ids, labels, device),
                           q_scale=_tensor(q_scale, device, torch.float32),
                           metric=normalize_metric(metric), window=int(window), n_rows=int(n_rows))
+
+
+def ivf_pq_index_from_numpy(centers, center_norms, centers_rot, rotation, pq_centers,
+                            sorted_codes, offsets, sizes, ids, labels, metric, window, n_rows,
+                            pq_bits, sorted_codes_t=None, sorted_code_norms=None, device="cpu"
+                            ) -> ivf_pq.Index:
+    """The port's IVF-PQ index (PER_SUBSPACE codebooks) over a reference
+    index's arrays. The reference's serving layout is taken as it is: its word
+    rows padded to a multiple of 8 and its norms padded for a 1024-row DMA
+    window are read by index and the pads ignored."""
+    return ivf_pq.Index(centers=_tensor(centers, device),
+                        center_norms=_tensor(center_norms, device),
+                        centers_rot=_tensor(centers_rot, device),
+                        rotation=_tensor(rotation, device), pq_centers=_tensor(pq_centers, device),
+                        sorted_codes=_words(sorted_codes, device),
+                        lists=_lists(offsets, sizes, ids, labels, device),
+                        metric=normalize_metric(metric), window=int(window), n_rows=int(n_rows),
+                        pq_bits=int(pq_bits), codebook_gen="per_subspace",
+                        pq_dim_static=int(np.shape(pq_centers)[0]),
+                        sorted_codes_t=_words(sorted_codes_t, device),
+                        sorted_code_norms=_tensor(sorted_code_norms, device))
+
+
+def ivf_rabitq_index_from_numpy(centers, center_norms, rotation, centers_rot, sorted_codes,
+                                sorted_fadd, sorted_frescale, offsets, sizes, ids, labels,
+                                metric, window, n_rows, bits_per_dim, sorted_codes_t=None,
+                                device="cpu") -> ivf_rabitq.Index:
+    """The port's IVF-RaBitQ index over a reference index's arrays (its
+    transposed words padded to a multiple of 8 rows are taken as they are)."""
+    return ivf_rabitq.Index(centers=_tensor(centers, device),
+                            center_norms=_tensor(center_norms, device),
+                            rotation=_tensor(rotation, device),
+                            centers_rot=_tensor(centers_rot, device),
+                            sorted_codes=_words(sorted_codes, device),
+                            sorted_fadd=_tensor(sorted_fadd, device),
+                            sorted_frescale=_tensor(sorted_frescale, device),
+                            lists=_lists(offsets, sizes, ids, labels, device),
+                            metric=normalize_metric(metric), window=int(window),
+                            n_rows=int(n_rows), bits_per_dim=int(bits_per_dim),
+                            sorted_codes_t=_words(sorted_codes_t, device))

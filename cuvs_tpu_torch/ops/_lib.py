@@ -1,10 +1,10 @@
 """Build and load the port's CUDA kernels (``cuvs_tpu_torch/csrc``).
 
-The kernels have a plain C interface and are bound with ``ctypes``: ``nvcc``
-compiles every ``csrc/*.cu`` into one shared library for ``sm_90a`` at the
-first launch, under ``cuvs_tpu_torch/_build/``, named by a hash of the
-sources and flags, so an edited source is rebuilt and a stale library is
-never loaded.
+The kernels have a plain C interface and are bound with ``ctypes``: at the
+first launch ``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a``, one
+process per source, all at once, and links the objects into one shared
+library under ``cuvs_tpu_torch/_build/``, named by a hash of the sources and
+flags, so an edited source is rebuilt and a stale library is never loaded.
 Nothing here runs at import time, so the package imports on machines without
 a GPU or a CUDA toolkit.
 """
@@ -26,7 +26,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-Xcompiler", "-fPIC"]
 
 # element-type codes of the C entry points (csrc/tile_dot.cuh DType)
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
@@ -39,6 +39,8 @@ _SIGNATURES = {
     "cuvs_bf_topk_approx": [_I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     "cuvs_ivf_scan": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P,
                       _P, _P],
+    "cuvs_pq_scan": [_P, _I, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                     _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
 }
 
 
@@ -68,24 +70,33 @@ def library_path() -> Path:
 def build() -> Path:
     """Compile the kernels if the library for the current sources is missing.
 
-    The library is written under a temporary name and renamed into place, so a
-    concurrent or interrupted build never leaves a partial file behind."""
+    The library is built in a temporary directory and renamed into place, so
+    a concurrent or interrupted build never leaves a partial file behind."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = [str(s) for s in sorted(CSRC.glob("*.cu"))]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, *cu],
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        procs = [(src, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", os.path.join(tmp, src.stem + ".o"),
+             str(src)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+            for src in sorted(CSRC.glob("*.cu"))]
+        failed = []
+        for src, proc in procs:  # wait for every compiler before raising
+            log = proc.communicate()[0]
+            if proc.returncode != 0:
+                failed.append(f"{src.name} ({proc.returncode}):\n{log}")
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        so = os.path.join(tmp, out.name)
+        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", so,
+                               *(os.path.join(tmp, src.stem + ".o") for src, _ in procs)],
                               capture_output=True, text=True)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stdout}\n"
+                               f"{proc.stderr}")
+        os.replace(so, out)
     return out
 
 

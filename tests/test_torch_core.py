@@ -230,7 +230,8 @@ def test_traced_records_a_profiler_range():
 
 
 def test_import_pulls_in_neither_jax_nor_triton():
-    code = ("import sys, cuvs_tpu_torch; "
+    code = ("import sys, cuvs_tpu_torch, cuvs_tpu_torch.interop; "
+            "import cuvs_tpu_torch.neighbors.ivf_pq, cuvs_tpu_torch.neighbors.ivf_rabitq; "
             "bad = [m for m in ('jax', 'flax', 'triton') if m in sys.modules]; "
             "assert not bad, bad; "
             "from cuvs_tpu_torch.ops import _lib; "

@@ -8,14 +8,20 @@ neither JAX nor the JAX package, so it also runs where JAX is not installed:
 Tolerances: float32 and bfloat16 pools are compared at rtol 1e-5 / atol 1e-4
 (the kernel and the plain version sum the same exact products in another
 order); int8 pools are integer arithmetic and must be identical. Ids must be
-equal except where two candidates' values tie within that tolerance.
+equal except where two candidates' values tie within that tolerance. The
+quantized-code scan with an int8 table may differ where an entry's lut/scale
+sits on a rounding boundary: at most 0.1% of its pool entries.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from cuvs_tpu_torch.neighbors import ivf_scan as nb_ivf_scan
 from cuvs_tpu_torch.ops import bf_topk, ivf_scan
+# pytest puts this directory on sys.path; "tests" itself may name another
+# installed package where JAX is absent
+from torch_parity import pq_scan_case
 
 torch.set_num_threads(1)
 
@@ -110,12 +116,104 @@ def test_ivf_scan_kernel_matches_plain(cuda, dtype, qdtype, ip, cap):
     _assert_pool(kv, ki, rv, ri, exact_ints=dtype == torch.int8)
 
 
+def _pq_scan_args(case, mode, bits, book, pq_len, ip, use_pen, int8, cap, W, dev):
+    M = case["qidx"].shape[1]
+    cb_t = nb_ivf_scan.block_diag_codebook(torch.from_numpy(case["codebook"]), 128)
+    words = torch.from_numpy(case["codes_t"].view(np.int32))
+    args = (words, torch.from_numpy(case["norms"]), torch.from_numpy(case["queries"]).bfloat16(),
+            cb_t, torch.from_numpy(case["centers_tile"]).bfloat16(),
+            torch.from_numpy(case["qidx"]), torch.from_numpy(case["al"]),
+            torch.from_numpy(case["lo"]), torch.from_numpy(case["sizes"]))
+    kw = dict(W=W, m_tile=M, ip=ip, cap=cap, book=book, bits=bits, mode=mode,
+              sorted_fr=torch.from_numpy(case["fr"]).to(dev) if mode == "rabitq" else None,
+              use_pen=use_pen, int8_mode=int8, pq_len=pq_len)
+    return tuple(a.to(dev) for a in args), kw
+
+
+# a tile holds a ragged 100 slots; tile 2 is empty, tiles 1, 2 and 4 start
+# their list past window position 0 (mid-slice)
+_PQ_GEOM = dict(al=[0, 128, 1024, 2048, 2944, 3072], lo=[0, 37, 5, 0, 100, 0],
+                sizes=[900, 600, 0, 1024, 700, 1], M=100, W=1024, n_pad=4096, nq=50)
+
+
+@pytest.mark.parametrize("ip,use_pen", [(False, False), (True, False), (True, True)])
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("cap", [2, 3, 5])
+@pytest.mark.parametrize("S,book", [(64, 256), (32, 16)])
+def test_pq_scan_kernel_matches_plain_pq(cuda, ip, use_pen, int8, cap, S, book):
+    case = pq_scan_case(cap + 7 * int8 + S, "pq", 8, S, book, 128 // S, use_pen=use_pen,
+                        word_pad=3, **_PQ_GEOM)
+    args, kw = _pq_scan_args(case, "pq", 8, book, 128 // S, ip, use_pen, int8, cap,
+                             _PQ_GEOM["W"], cuda)
+    kv, ki = ivf_scan.fused_pq_scan(*args, **kw)
+    torch.cuda.synchronize()
+    rv, ri = ivf_scan.fused_pq_scan_reference(*args, **kw)
+    _assert_pq_pool(kv, ki, rv, ri, int8)
+
+
+@pytest.mark.parametrize("bits", [1, 3, 5, 8])
+@pytest.mark.parametrize("ip", [False, True])
+@pytest.mark.parametrize("cap", [2, 3, 5])
+def test_pq_scan_kernel_matches_plain_rabitq(cuda, bits, ip, cap):
+    case = pq_scan_case(bits + 10 * cap, "rabitq", bits, 128, 1 << bits, 1, **_PQ_GEOM)
+    args, kw = _pq_scan_args(case, "rabitq", bits, 1 << bits, 1, ip, False, False, cap,
+                             _PQ_GEOM["W"], cuda)
+    kv, ki = ivf_scan.fused_pq_scan(*args, **kw)
+    torch.cuda.synchronize()
+    rv, ri = ivf_scan.fused_pq_scan_reference(*args, **kw)
+    _assert_pq_pool(kv, ki, rv, ri, False)
+
+
+def _assert_pq_pool(kv, ki, rv, ri, int8):
+    kv, ki, rv, ri = (t.cpu() for t in (kv, ki, rv, ri))
+    assert torch.equal(torch.isfinite(kv), torch.isfinite(rv))
+    assert torch.isinf(kv[2]).all()  # the empty tile holds no candidate
+    fin = torch.isfinite(rv)
+    close = (kv[fin] - rv[fin]).abs() <= ATOL + RTOL * rv[fin].abs()
+    if int8:  # a table entry on a rounding boundary may round the other way
+        assert close.float().mean() >= 0.999
+    else:
+        assert bool(close.all())
+    assert (ki != ri).float().mean() < 0.01
+
+
 def test_launch_counters_count_kernel_launches(cuda):
     before = dict(bf_topk.LAUNCHES)
     q = _data(np.random.default_rng(1), 8, 32, torch.float32, cuda)
     bf_topk.fused_bf_topk(q, q, 4, exact=True)
     bf_topk.fused_bf_topk(q.cpu(), q.cpu(), 4, exact=True)  # plain version: not counted
     assert bf_topk.LAUNCHES["bf_topk_exact"] == before["bf_topk_exact"] + 1
+
+
+def test_pq_scan_launch_counter_counts_kernel_launches(cuda):
+    geom = dict(al=[0, 128], lo=[3, 0], sizes=[200, 0], M=8, W=256, n_pad=512, nq=4)
+    case = pq_scan_case(1, "rabitq", 3, 128, 8, 1, **geom)
+    before = ivf_scan.LAUNCHES["pq_scan"]
+    for dev in (cuda, torch.device("cpu")):  # the CPU call runs the plain version
+        args, kw = _pq_scan_args(case, "rabitq", 3, 8, 1, False, False, False, 2, 256, dev)
+        ivf_scan.fused_pq_scan(*args, **kw)
+    torch.cuda.synchronize()
+    assert ivf_scan.LAUNCHES["pq_scan"] == before + 1
+
+
+def test_scan_wrappers_reject_operands_off_the_card(cuda):
+    """A host tensor beside CUDA codes or rows raises instead of reaching the
+    kernel as a host pointer."""
+    geom = dict(al=[0, 128], lo=[3, 0], sizes=[200, 0], M=8, W=256, n_pad=512, nq=4)
+    case = pq_scan_case(2, "pq", 8, 64, 256, 2, **geom)
+    args, kw = _pq_scan_args(case, "pq", 8, 256, 2, False, False, False, 2, 256, cuda)
+    for i in (2, 3, 4):  # queries_rot, cb_t, centers_tile
+        with pytest.raises(ValueError):
+            ivf_scan.fused_pq_scan(*args[:i], args[i].cpu(), *args[i + 1:], **kw)
+    rng = np.random.default_rng(3)
+    x = _data(rng, 512, 32, torch.float32, cuda)
+    norms = (x * x).sum(1)
+    tiles = [torch.tensor(v, dtype=torch.int32, device=cuda) for v in ([0], [0], [200])]
+    qidx = torch.zeros((1, 8), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        ivf_scan.fused_ivf_scan(x, norms, x[:4].cpu(), qidx, *tiles, 1.0, W=256, m_tile=8,
+                                ip=False, int8_mode=False)
+    torch.cuda.synchronize()  # the context is still healthy
 
 
 def test_ivf_build_is_reproducible(cuda):
