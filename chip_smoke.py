@@ -10,16 +10,18 @@ same shape): 1,000,000 x 128 f32, 4096 queries, k = 10.
 
   1. exact ground truth through the fused exact kernel, cross-checked
      against the unfused path on 256 queries (bench/gt.py);
-  2. approximate fused brute force in bfloat16;
-  3. int8 fused brute force, alone and with 40 candidates + exact refine;
-  4. IVF-Flat (1984 lists, bf16 storage) built by balanced k-means and
+  2. exact fused brute force in float32 (the default
+     ``brute_force.search(fused=True)``), timed, its recall against (1);
+  3. approximate fused brute force in bfloat16;
+  4. int8 fused brute force, alone and with 40 candidates + exact refine;
+  5. IVF-Flat (1984 lists, bf16 storage) built by balanced k-means and
      searched with 64 probes through the fused scan kernel, with and
      without refine;
-  5. IVF-PQ (1024 lists, pq_dim 64, 8 bits, per-subspace codebooks: the
+  6. IVF-PQ (1024 lists, pq_dim 64, 8 bits, per-subspace codebooks: the
      ``base`` group of cuvs_tpu/bench/configs/ivf_pq.yaml) searched with 50
      probes through the fused quantized-code scan kernel, bf16 table alone
      and + refine from 40 candidates, int8 table + refine;
-  6. IVF-RaBitQ (1024 lists, 3 bits per dimension: ivf_rabitq.yaml ``base``;
+  7. IVF-RaBitQ (1024 lists, 3 bits per dimension: ivf_rabitq.yaml ``base``;
      128 x 3 bits = 12 words, so codes straddle words) with 50 probes
      through the same kernel, alone and + refine.
 
@@ -34,7 +36,12 @@ a rounding boundary (<= 0.1% of entries). Each approximate phase's recall may
 be at most 0.005 below the recall of the same search run on the plain
 versions, and each refined phase's recall may not be below its unrefined
 phase's. Kernel and plain times are CUDA-event times of one call at the
-path's shapes, after a warm-up call.
+path's shapes, after a warm-up call. Beside each: its bound (the least time
+the card could take: bytes over the memory rate or operations over the peak
+rate of their type, cuvs_tpu_torch/bench/roofline.py), its share of that
+bound, and for the brute-force kernels the time of the cuBLAS product of the
+same operands alone (``product_ms``, a yardstick no kernel calls). No single
+PyTorch call computes any kernel's function, so ``library_ms`` is null.
 
 Prints the card's name and power limit, one line per phase, the launch
 counts, one JSON line {"kernels": [...]}, and last
@@ -178,7 +185,7 @@ def main() -> int:
         print("chip_smoke.py: needs a CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, HERE)
-    from cuvs_tpu_torch.bench import datasets
+    from cuvs_tpu_torch.bench import datasets, roofline
     from cuvs_tpu_torch.bench.gt import exact_ground_truth, id_recall
     from cuvs_tpu_torch.bench.measure import timed_qps
     from cuvs_tpu_torch.neighbors import brute_force, ivf_flat, ivf_pq, ivf_rabitq, refine
@@ -224,16 +231,18 @@ def main() -> int:
             print(f"# {label}: recall@10={rec:.4f} qps={qps:.0f}")
             results[label] = dict(fn=fn, recall=rec, qps=qps)
 
-        # 2. approximate fused brute force, bf16
+        # 2. exact fused brute force, f32 (the default fused search)
+        phase("bf_fused_exact_f32", lambda qq: brute_force.search(bf, qq, K, fused=True))
+        # 3. approximate fused brute force, bf16
         phase("bf_fused_bf16", lambda qq: brute_force.search(
             bf, qq, K, compute_dtype=torch.bfloat16, recall_target=0.97, fused=True))
-        # 3. int8 fused brute force, alone and + refine
+        # 4. int8 fused brute force, alone and + refine
         bf8 = brute_force.build(x, metric=ds.metric, storage_dtype=torch.int8)
         int8_kw = dict(recall_target=0.97, fused=True)
         phase("bf_int8_fused", lambda qq: brute_force.search(bf8, qq, K, **int8_kw))
         phase("bf_int8_fused_refine", lambda qq: refine.refine(
             x, qq, brute_force.search(bf8, qq, CAND, **int8_kw)[1], K, metric=ds.metric))
-        # 4. IVF-Flat, fused cluster-major scan
+        # 5. IVF-Flat, fused cluster-major scan
         t0 = time.time()
         idx = ivf_flat.build(x, n_lists=N_LISTS, metric=ds.metric, seed=0,
                              storage_dtype=torch.bfloat16)
@@ -258,7 +267,7 @@ def main() -> int:
                   f"({time.time() - t0:.1f} s)")
             return index
 
-        # 5. IVF-PQ, fused quantized-code scan (bf16 and int8 tables)
+        # 6. IVF-PQ, fused quantized-code scan (bf16 and int8 tables)
         pq = build_ivf("ivf_pq", lambda: ivf_pq.build(x, n_lists=Q_LISTS, pq_dim=64, pq_bits=8,
                                                       metric=ds.metric, seed=0))
         pq_sp = {lut: ivf_pq.SearchParams(n_probes=Q_PROBES, scan_algo="fused", lut_dtype=lut)
@@ -269,7 +278,7 @@ def main() -> int:
             x, qq, ivf_pq.search(pq, qq, CAND, pq_sp[torch.bfloat16])[1], K, metric=ds.metric))
         phase(f"ivf_pq_fused_int8lut_p{Q_PROBES}_refine", lambda qq: refine.refine(
             x, qq, ivf_pq.search(pq, qq, CAND, pq_sp[torch.int8])[1], K, metric=ds.metric))
-        # 6. IVF-RaBitQ, 3 bits: the same kernel's rabitq epilogue
+        # 7. IVF-RaBitQ, 3 bits: the same kernel's rabitq epilogue
         rq = build_ivf("ivf_rabitq", lambda: ivf_rabitq.build(
             x, n_lists=Q_LISTS, bits_per_dim=3, metric=ds.metric, seed=0))
         rq_sp = ivf_rabitq.SearchParams(n_probes=Q_PROBES, scan_algo="fused")
@@ -311,17 +320,27 @@ def main() -> int:
             plain_ms, ref = cuda_ms(lambda: getattr(mod, plain)(*args, **kw))
             kind = "int8lut" if var == "pq-int8lut" else "int" if var == "int8" else "float"
             err, same = compare_pools(out, ref, kind)
+            v = dict(ms=ms, plain_ms=plain_ms, max_abs_err=err,
+                     **roofline.kernel_bound(name, args, kw, out), library_ms=None)
+            v["share"] = v["bound_ms"] / ms
+            if mod is bf_topk:
+                v["product_ms"] = roofline.product_ms(args[0], args[1])
             shape = "x".join(str(s) for s in out[0].shape)
             print(f"# {name} [{var}]: pool {shape} matches plain (max abs err {err:.3g}, "
-                  f"bit-identical: {same}); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
-            variants[var] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=err)
+                  f"bit-identical: {same}); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+                  f"bound {v['bound_ms']:.3f} ms ({v['bound_by']}, share {v['share']:.3f})"
+                  + (f", cuBLAS product {v['product_ms']:.3f} ms" if "product_ms" in v else ""))
+            variants[var] = v
         check(variants, f"no recorded call of {name}")
         # headline: the bf16 call where the path makes one (the rest are in variants)
         head = variants.get("bfloat16") or variants.get("pq-bf16") or next(iter(variants.values()))
         report.append(dict(name=name, route="cuda", source=source, replaces=replaces,
                            launches=launches[name],
                            max_abs_err=max(v["max_abs_err"] for v in variants.values()),
-                           ms=head["ms"], plain_ms=head["plain_ms"], variants=variants))
+                           **{key: head.get(key) for key in (
+                               "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "share",
+                               "product_ms")},
+                           variants=variants))
     print(json.dumps({"kernels": report}))
     print(f"# total: {time.time() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -18,6 +18,7 @@ from typing import Optional
 import torch
 
 from cuvs_tpu_torch.distance.fused_l2_nn import fused_l2_argmin
+from cuvs_tpu_torch.utils.device import as_tensor as _on_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -122,11 +123,13 @@ def _fit_impl(gen, x, n_clusters, n_meso, n_iters, bal_iters, compute_dtype):
     return _balancing_iters(gen, x, fine_centers, bal_iters, compute_dtype)
 
 
-def fit(x, n_clusters: int, params: Optional[BalancedParams] = None, **kw) -> torch.Tensor:
-    """Train a balanced coarse quantizer. Returns centers [n_clusters, d] f32."""
+def fit(x, n_clusters: int, params: Optional[BalancedParams] = None, device=None,
+        **kw) -> torch.Tensor:
+    """Train a balanced coarse quantizer. Returns centers [n_clusters, d] f32
+    on x's device (host data: ``device``, None for the CUDA card)."""
     if params is None:
         params = BalancedParams(n_clusters=n_clusters, **kw)
-    x = torch.as_tensor(x).float()
+    x = _on_device(x, device).float()
     n = x.shape[0]
     gen = torch.Generator(device=x.device)
     gen.manual_seed(params.seed)
@@ -142,7 +145,9 @@ def fit(x, n_clusters: int, params: Optional[BalancedParams] = None, **kw) -> to
                      int(params.balancing_em_iters), params.compute_dtype)
 
 
-def predict(x, centers, compute_dtype=torch.float32) -> torch.Tensor:
-    """Nearest-center label per row [n] int32."""
-    return fused_l2_argmin(torch.as_tensor(x).float(), torch.as_tensor(centers).float(),
+def predict(x, centers, compute_dtype=torch.float32, device=None) -> torch.Tensor:
+    """Nearest-center label per row [n] int32 (host data: ``device``, None
+    for the CUDA card; centers follow x)."""
+    x = _on_device(x, device).float()
+    return fused_l2_argmin(x, _on_device(centers, x.device).float(),
                            compute_dtype=compute_dtype)[0]

@@ -1,5 +1,6 @@
-// Shared block geometry and the shared-memory dot-product tile used by the
-// three search kernels (bf_topk.cu, ivf_scan.cu).
+// Block geometry and the shared-memory dot-product tile of the fused IVF
+// scan kernel (ivf_scan.cu), its only user: the brute-force kernels moved to
+// tensor cores (mma_tile.cuh) and a register-blocked fp32 loop (fma_tile.cuh).
 //
 // A block owns kBQ query rows and walks a run of 128-column slices of the
 // dataset. For every slice it stages the slice's 128 rows and its own kBQ
@@ -14,6 +15,8 @@
 // exact in f32); int8 rows are staged as packed int32 words of four values and
 // multiplied with __dp4a into int32, which is exact in any order.
 #pragma once
+
+#include "dtype.cuh"
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -131,7 +134,5 @@ __device__ __forceinline__ void slice_dots(typename Elem<TX>::Word* qs,
     __syncthreads();
   }
 }
-
-enum DType { kF32 = 0, kBF16 = 1, kI8 = 2 };
 
 }  // namespace cuvs_tpu_torch

@@ -1,7 +1,8 @@
 """Indexes carried across from the JAX package.
 
 Each function takes exactly the arrays of a ``cuvs_tpu`` index (after
-``np.asarray``) and returns the port's index on ``device``, with the same
+``np.asarray``) and returns the port's index on ``device`` (None: the CUDA
+card, which must exist; pass ``device="cpu"`` for the host), with the same
 layout. A test can then build once in JAX and search in both packages, which
 separates search faults from the k-means build's RNG differences. bfloat16
 arrays (numpy's ``ml_dtypes`` bfloat16) are carried bit for bit.
@@ -14,11 +15,13 @@ import torch
 
 from cuvs_tpu_torch.distance.pairwise import normalize_metric
 from cuvs_tpu_torch.neighbors import brute_force, ivf_common, ivf_flat, ivf_pq, ivf_rabitq
+from cuvs_tpu_torch.utils.device import resolve_device
 
 
 def _tensor(a, device, dtype=None):
     if a is None:
         return None
+    device = resolve_device(device)
     a = np.array(a)  # a writable copy: JAX hands out read-only buffers
     if a.dtype.name == "bfloat16":
         t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
@@ -33,7 +36,7 @@ def _words(a, device):
     """uint32 code words as int32 tensors with the same bits (core.bitpack)."""
     if a is None:
         return None
-    return torch.from_numpy(np.array(a, np.uint32).view(np.int32)).to(device)
+    return torch.from_numpy(np.array(a, np.uint32).view(np.int32)).to(resolve_device(device))
 
 
 def _lists(offsets, sizes, ids, labels, device) -> ivf_common.SortedLists:
@@ -43,7 +46,7 @@ def _lists(offsets, sizes, ids, labels, device) -> ivf_common.SortedLists:
                                   ids=_tensor(ids, device, torch.int32))
 
 
-def brute_force_index_from_numpy(dataset, norms, q_scale, metric, device="cpu"
+def brute_force_index_from_numpy(dataset, norms, q_scale, metric, device=None
                                  ) -> brute_force.Index:
     """The port's brute-force index over a reference index's arrays."""
     return brute_force.Index(dataset=_tensor(dataset, device), norms=_tensor(norms, device),
@@ -52,7 +55,7 @@ def brute_force_index_from_numpy(dataset, norms, q_scale, metric, device="cpu"
 
 
 def ivf_flat_index_from_numpy(centers, center_norms, sorted_data, sorted_norms, offsets, sizes,
-                              ids, labels, q_scale, metric, window, n_rows, device="cpu"
+                              ids, labels, q_scale, metric, window, n_rows, device=None
                               ) -> ivf_flat.Index:
     """The port's IVF-Flat index over a reference index's arrays (the list
     arrays are ``index.lists.offsets/sizes/ids/labels``)."""
@@ -66,7 +69,7 @@ def ivf_flat_index_from_numpy(centers, center_norms, sorted_data, sorted_norms, 
 
 def ivf_pq_index_from_numpy(centers, center_norms, centers_rot, rotation, pq_centers,
                             sorted_codes, offsets, sizes, ids, labels, metric, window, n_rows,
-                            pq_bits, sorted_codes_t=None, sorted_code_norms=None, device="cpu"
+                            pq_bits, sorted_codes_t=None, sorted_code_norms=None, device=None
                             ) -> ivf_pq.Index:
     """The port's IVF-PQ index (PER_SUBSPACE codebooks) over a reference
     index's arrays. The reference's serving layout is taken as it is: its word
@@ -88,7 +91,7 @@ def ivf_pq_index_from_numpy(centers, center_norms, centers_rot, rotation, pq_cen
 def ivf_rabitq_index_from_numpy(centers, center_norms, rotation, centers_rot, sorted_codes,
                                 sorted_fadd, sorted_frescale, offsets, sizes, ids, labels,
                                 metric, window, n_rows, bits_per_dim, sorted_codes_t=None,
-                                device="cpu") -> ivf_rabitq.Index:
+                                device=None) -> ivf_rabitq.Index:
     """The port's IVF-RaBitQ index over a reference index's arrays (its
     transposed words padded to a multiple of 8 rows are taken as they are)."""
     return ivf_rabitq.Index(centers=_tensor(centers, device),

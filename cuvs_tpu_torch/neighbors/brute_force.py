@@ -19,6 +19,7 @@ from cuvs_tpu_torch.distance import pairwise
 from cuvs_tpu_torch.distance.pairwise import DistanceType, normalize_metric
 from cuvs_tpu_torch.neighbors import filters as filt
 from cuvs_tpu_torch.selection.select_k import topk
+from cuvs_tpu_torch.utils.device import as_tensor as _on_device
 from cuvs_tpu_torch.utils.tracing import traced
 
 
@@ -60,7 +61,7 @@ def build(dataset, metric="sqeuclidean", metric_arg: float = 2.0, storage_dtype=
     ``storage_dtype=torch.int8`` stores globally-scaled int8 rows (see Index).
     """
     metric = normalize_metric(metric)
-    dataset = torch.as_tensor(dataset, device=device)
+    dataset = _on_device(dataset, device)
     if callable(metric) and not isinstance(metric, DistanceType):
         return Index(dataset=dataset, norms=None, metric=metric, metric_arg=metric_arg)
     norms = None

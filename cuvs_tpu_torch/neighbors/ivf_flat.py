@@ -24,6 +24,7 @@ from cuvs_tpu_torch.distance.pairwise import DistanceType, normalize_metric
 from cuvs_tpu_torch.neighbors import filters as filt
 from cuvs_tpu_torch.neighbors import ivf_common as ivf
 from cuvs_tpu_torch.selection.select_k import topk
+from cuvs_tpu_torch.utils.device import as_tensor as _on_device
 from cuvs_tpu_torch.utils.tracing import traced
 
 _FUSED_METRICS = (DistanceType.L2Expanded, DistanceType.L2SqrtExpanded,
@@ -168,7 +169,7 @@ def build(dataset, params: Optional[IndexParams] = None, device=None, **kw) -> I
     """Train the coarse quantizer and populate the lists (ivf_flat_build.cuh:394)."""
     if params is None:
         params = IndexParams(**kw)
-    dataset = torch.as_tensor(dataset, device=device)
+    dataset = _on_device(dataset, device)
     n = dataset.shape[0]
     n_lists = min(params.n_lists, n)
     trainset = dataset.float()

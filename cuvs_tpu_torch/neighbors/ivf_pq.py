@@ -32,6 +32,7 @@ from cuvs_tpu_torch.distance.pairwise import DistanceType, normalize_metric
 from cuvs_tpu_torch.neighbors import filters as filt
 from cuvs_tpu_torch.neighbors import ivf_common as ivf
 from cuvs_tpu_torch.selection.select_k import topk
+from cuvs_tpu_torch.utils.device import as_tensor as _on_device
 from cuvs_tpu_torch.utils.tracing import traced
 
 # transient bound for the chunked residual pass in build() (tests shrink it
@@ -250,7 +251,7 @@ def build(dataset, params: Optional[IndexParams] = None, device=None, **kw) -> I
         params = IndexParams(**kw)
     if params.codebook_gen != "per_subspace":
         raise NotImplementedError(f"codebook_gen='per_cluster' {_UNPORTED}")
-    dataset = torch.as_tensor(dataset, device=device)
+    dataset = _on_device(dataset, device)
     n, dim = dataset.shape
     dev = dataset.device
     n_lists = min(params.n_lists, n)

@@ -34,6 +34,7 @@ from cuvs_tpu_torch.neighbors import filters as filt
 from cuvs_tpu_torch.neighbors import ivf_common as ivf
 from cuvs_tpu_torch.neighbors.ivf_pq import _make_rotation
 from cuvs_tpu_torch.selection.select_k import topk
+from cuvs_tpu_torch.utils.device import as_tensor as _on_device
 from cuvs_tpu_torch.utils.tracing import traced
 
 _FUSED_METRICS = (DistanceType.L2Expanded, DistanceType.L2SqrtExpanded,
@@ -173,7 +174,7 @@ def build(dataset, params: Optional[IndexParams] = None, device=None, **kw) -> I
     """Train the coarse quantizer, rotate and encode the residuals, sort by list."""
     if params is None:
         params = IndexParams(**kw)
-    xf = torch.as_tensor(dataset, device=device).float()
+    xf = _on_device(dataset, device).float()
     n, d = xf.shape
     dev = xf.device
     n_lists = min(params.n_lists, n)

@@ -15,6 +15,7 @@ import torch
 from cuvs_tpu_torch.distance.pairwise import DistanceType, normalize_metric
 from cuvs_tpu_torch.neighbors import ivf_common as ivf
 from cuvs_tpu_torch.selection.select_k import topk
+from cuvs_tpu_torch.utils.device import as_tensor as _on_device
 
 
 def _refine_impl(dataset, queries, candidates, k, metric, compute_dtype, qchunk):
@@ -50,12 +51,14 @@ def _refine_impl(dataset, queries, candidates, k, metric, compute_dtype, qchunk)
 
 
 def refine(dataset, queries, candidates, k: int, metric="sqeuclidean",
-           compute_dtype=torch.float32, query_chunk: int = 2048
+           compute_dtype=torch.float32, query_chunk: int = 2048, device=None
            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Re-rank ``candidates`` [nq, c] (global ids; negative = invalid) by the
-    exact metric; returns the best k (distances [nq, k], ids [nq, k])."""
+    exact metric; returns the best k (distances [nq, k], ids [nq, k]). Host
+    data goes to ``device`` (None: the CUDA card); queries and candidates
+    follow the dataset."""
     metric = normalize_metric(metric)
-    dataset = torch.as_tensor(dataset)
+    dataset = _on_device(dataset, device)
     queries = torch.as_tensor(queries, device=dataset.device)
     candidates = torch.as_tensor(candidates, device=dataset.device)
     if k > candidates.shape[1]:

@@ -28,7 +28,7 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC"]
 
-# element-type codes of the C entry points (csrc/tile_dot.cuh DType)
+# element-type codes of the C entry points (csrc/dtype.cuh DType)
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 _P = ctypes.c_void_p

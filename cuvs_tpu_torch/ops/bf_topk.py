@@ -12,6 +12,9 @@ distance block on chip and write only a small candidate pool:
     bfloat16 and int8 (int32 arithmetic, both of the reference's branches:
     key-pack for d <= 130 and the compare/select chain above).
 
+bfloat16 and int8 rows multiply on tensor cores (``csrc/mma_tile.cuh``),
+float32 rows in a register-blocked IEEE fp32 loop (``csrc/fma_tile.cuh``).
+
 Each kernel has a plain PyTorch version (``*_reference``) with the same
 output contract. A wrapper runs the plain version only for tensors on the
 CPU; for CUDA tensors it launches the kernel, or raises.
@@ -36,6 +39,10 @@ from cuvs_tpu_torch.selection.select_k import topk as _select_topk
 LAUNCHES = {"bf_topk_exact": 0, "bf_topk_approx": 0}
 
 _MAX_EXACT_K = 64
+# what a failed launch most likely means: the queries a block keeps in shared
+# memory (csrc/mma_tile.cuh) leave no room
+_TOO_WIDE = ("bf16 rows wider than about 2000 or int8 rows wider than about 4000 do not fit the "
+             "tensor-core tile's shared memory")
 # query rows per step of the plain versions: bounds their [rows, N] blocks
 _REF_ROWS = 256
 
@@ -94,7 +101,7 @@ def bf_topk_exact(queries, dataset, qn, dn, k: int, tile_n: int, ip: bool
         _lib.DTYPE_CODE[queries.dtype], queries.data_ptr(), dataset.data_ptr(), qn.data_ptr(),
         dn.data_ptr(), B, N, d, int(k), int(tile_n), n_tiles, int(bool(ip)), out_v.data_ptr(),
         out_i.data_ptr(), _lib.stream(queries.device))
-    _lib.check(rc, "bf_topk_exact")
+    _lib.check(rc, f"bf_topk_exact ({_TOO_WIDE})")
     LAUNCHES["bf_topk_exact"] += 1
     return out_v, out_i
 
@@ -168,7 +175,7 @@ def bf_topk_approx(queries, dataset, pen, tile_n: int, key_pack: bool
         _lib.DTYPE_CODE[queries.dtype], queries.data_ptr(), dataset.data_ptr(), pen.data_ptr(), B, N,
         d, int(tile_n), n_tiles, int(bool(key_pack)), out_v.data_ptr(), out_i.data_ptr(),
         _lib.stream(queries.device))
-    _lib.check(rc, "bf_topk_approx")
+    _lib.check(rc, f"bf_topk_approx ({_TOO_WIDE})")
     LAUNCHES["bf_topk_approx"] += 1
     return out_v, out_i
 

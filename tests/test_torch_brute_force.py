@@ -28,7 +28,8 @@ TOL = dict(rtol=1e-5, atol=1e-4)
 def _carried(jidx):
     return interop.brute_force_index_from_numpy(
         np.asarray(jidx.dataset), None if jidx.norms is None else np.asarray(jidx.norms),
-        None if jidx.q_scale is None else np.asarray(jidx.q_scale), jidx.metric)
+        None if jidx.q_scale is None else np.asarray(jidx.q_scale), jidx.metric,
+        device="cpu")
 
 
 @pytest.mark.parametrize("storage", [None, "int8"])

@@ -1,0 +1,73 @@
+"""Where the port's entry points put host data: on the card unless the caller
+asks for the CPU, and never on the CPU by themselves."""
+
+import numpy as np
+import pytest
+import torch
+
+from cuvs_tpu_torch import interop
+from cuvs_tpu_torch.cluster import kmeans_balanced
+from cuvs_tpu_torch.neighbors import brute_force, ivf_flat, ivf_pq, ivf_rabitq, refine
+from cuvs_tpu_torch.utils import device as dev_mod
+
+torch.set_num_threads(1)
+
+_X = np.random.default_rng(0).standard_normal((256, 16)).astype(np.float32)
+
+# entry point -> (call with the dataset and a device, the tensor its result lives in)
+_ENTRIES = {
+    "brute_force.build": lambda x, device: brute_force.build(x, device=device).dataset,
+    "ivf_flat.build": lambda x, device: ivf_flat.build(x, n_lists=4, seed=0,
+                                                       device=device).centers,
+    "ivf_pq.build": lambda x, device: ivf_pq.build(x, n_lists=4, pq_dim=4, pq_bits=4, seed=0,
+                                                   device=device).centers,
+    "ivf_rabitq.build": lambda x, device: ivf_rabitq.build(x, n_lists=4, bits_per_dim=1, seed=0,
+                                                           device=device).centers,
+    "refine.refine": lambda x, device: refine.refine(
+        x, x[:4], np.tile(np.arange(8, dtype=np.int32), (4, 1)), 2, device=device)[0],
+    "kmeans_balanced.fit": lambda x, device: kmeans_balanced.fit(x, 4, device=device),
+    "kmeans_balanced.predict": lambda x, device: kmeans_balanced.predict(x, x[:4],
+                                                                         device=device),
+}
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    """A machine without a CUDA device, whatever this one has."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+@pytest.mark.parametrize("entry", sorted(_ENTRIES))
+def test_host_data_goes_where_the_caller_says(entry):
+    assert _ENTRIES[entry](_X, "cpu").device.type == "cpu"
+
+
+@pytest.mark.parametrize("entry", sorted(_ENTRIES))
+def test_a_tensor_keeps_its_device(entry, no_cuda):
+    # a CPU tensor with no device named stays on the CPU, even where the
+    # default for host data is the card
+    assert _ENTRIES[entry](torch.from_numpy(_X), None).device.type == "cpu"
+
+
+@pytest.mark.parametrize("entry", sorted(_ENTRIES))
+def test_host_data_without_a_device_needs_the_card(entry, no_cuda):
+    with pytest.raises(RuntimeError, match="CUDA"):
+        _ENTRIES[entry](_X, None)
+
+
+def test_device_helper_rules(no_cuda):
+    t = torch.ones(3)
+    assert dev_mod.as_tensor(t) is t
+    assert dev_mod.as_tensor([1.0, 2.0], device="cpu").device.type == "cpu"
+    assert dev_mod.as_tensor(t, device="cpu") is t
+    assert dev_mod.resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dev_mod.resolve_device(None)
+
+
+def test_interop_defaults_to_the_card(no_cuda):
+    norms = (_X * _X).sum(1)
+    idx = interop.brute_force_index_from_numpy(_X, norms, None, "sqeuclidean", device="cpu")
+    assert idx.dataset.device.type == "cpu" and idx.norms.device.type == "cpu"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        interop.brute_force_index_from_numpy(_X, norms, None, "sqeuclidean")

@@ -87,6 +87,85 @@ def test_approx_kernel_matches_plain(cuda, dtype, d, ip):
     _assert_pool(kv, ki, rv, ri, exact_ints=dtype == torch.int8)
 
 
+def _int_valued(rng, n, d, dtype, dev, dup=1):
+    """Small integers in any dtype: every product and sum is exact, so kernel
+    and plain version agree bit for bit. dup > 1 repeats each row dup times
+    (shuffled), so distances tie exactly."""
+    x = rng.integers(-8, 9, (-(-n // dup), d))
+    x = np.repeat(x, dup, axis=0)[:n]
+    x = x[rng.permutation(n)]
+    return torch.from_numpy(x.astype(np.float32)).to(dtype).to(dev).contiguous()
+
+
+# d around the tensor-core chunk (128 bytes: 64 bf16, 128 int8), ragged, and
+# wide (GIST's 960); B around the query block; N a multiple of neither 128 nor
+# tile_n, with a last tile of 50 rows out of 1000
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("ip", [False, True])
+@pytest.mark.parametrize("d,B", [(16, 1), (100, 70), (130, 130), (256, 300), (960, 70)])
+def test_exact_kernel_edge_shapes(cuda, dtype, ip, d, B):
+    rng = np.random.default_rng(d + B)
+    q = _data(rng, B, d, dtype, cuda)
+    x = _data(rng, 2050, d, dtype, cuda)
+    qn, dn = (t.float().pow(2).sum(1) for t in (q, x))
+    kv, ki = bf_topk.bf_topk_exact(q, x, qn, dn, 10, 1000, ip)
+    torch.cuda.synchronize()
+    rv, ri = bf_topk.bf_topk_exact_reference(q, x, qn, dn, 10, 1000, ip)
+    _assert_pool(kv, ki, rv, ri, exact_ints=False)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("ip", [False, True])
+@pytest.mark.parametrize("k", [1, 10, 64])
+def test_exact_kernel_ties_go_to_the_lowest_column(cuda, dtype, ip, k):
+    rng = np.random.default_rng(k)
+    q = _int_valued(rng, 130, 100, dtype, cuda)
+    x = _int_valued(rng, 3001, 100, dtype, cuda, dup=7)
+    qn, dn = (t.float().pow(2).sum(1) for t in (q, x))
+    kv, ki = bf_topk.bf_topk_exact(q, x, qn, dn, k, 512, ip)
+    torch.cuda.synchronize()
+    rv, ri = bf_topk.bf_topk_exact_reference(q, x, qn, dn, k, 512, ip)
+    _assert_pool(kv, ki, rv, ri, exact_ints=True)
+
+
+# d = 130 is the widest int8 key-pack row, 131 the narrowest compare/select
+# chain; 960 (GIST) and 2048 need the narrower query blocks; the last of three
+# 16384-row tiles holds 300 rows
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("ip", [False, True])
+@pytest.mark.parametrize("d,B", [(16, 1), (100, 70), (130, 130), (131, 300), (256, 70),
+                                 (960, 130), (2048, 1)])
+def test_approx_kernel_edge_shapes(cuda, dtype, ip, d, B):
+    rng = np.random.default_rng(d + B)
+    q = _data(rng, B, d, dtype, cuda)
+    x = _data(rng, 2 * 16384 + 300, d, dtype, cuda)
+    tile_n = 16384
+    key_pack = dtype == torch.int8 and 4 * d * 16129 * 256 < 2 ** 31
+    assert key_pack == (dtype == torch.int8 and d <= 130)
+    pen = bf_topk._penalty(x, None, 3, tile_n, ip, key_pack)
+    kv, ki = bf_topk.bf_topk_approx(q, x, pen, tile_n, key_pack)
+    torch.cuda.synchronize()
+    rv, ri = bf_topk.bf_topk_approx_reference(q, x, pen, tile_n, key_pack)
+    _assert_pool(kv, ki, rv, ri, exact_ints=dtype == torch.int8)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("ip", [False, True])
+@pytest.mark.parametrize("d", [100, 131])
+def test_approx_kernel_ties_pick_the_reference_slice(cuda, dtype, ip, d):
+    # float and chain: the lowest slice of a tie; key-pack: the highest
+    rng = np.random.default_rng(d)
+    q = _int_valued(rng, 70, d, dtype, cuda)
+    x = _int_valued(rng, 20000, d, dtype, cuda, dup=5)
+    tile_n = 8192
+    key_pack = dtype == torch.int8 and 4 * d * 16129 * 256 < 2 ** 31
+    pen = bf_topk._penalty(x, None, 3, tile_n, ip, key_pack)
+    kv, ki = bf_topk.bf_topk_approx(q, x, pen, tile_n, key_pack)
+    torch.cuda.synchronize()
+    rv, ri = bf_topk.bf_topk_approx_reference(q, x, pen, tile_n, key_pack)
+    _assert_pool(kv, ki, rv, ri, exact_ints=True)
+
+
 # rows and queries: one dtype, or bf16 rows with f32 queries (bf16 storage
 # searched at f32 compute)
 @pytest.mark.parametrize("dtype,qdtype", [(torch.float32, torch.float32),

@@ -27,7 +27,8 @@ torch.set_num_threads(1)
 def _carried(j):
     return interop.ivf_flat_index_from_numpy(
         j.centers, j.center_norms, j.sorted_data, j.sorted_norms, j.lists.offsets,
-        j.lists.sizes, j.lists.ids, j.lists.labels, j.q_scale, j.metric, j.window, j.n_rows)
+        j.lists.sizes, j.lists.ids, j.lists.labels, j.q_scale, j.metric, j.window, j.n_rows,
+        device="cpu")
 
 
 _STORAGE = {"f32": (None, None, jnp.float32, torch.float32, dict(rtol=1e-5, atol=1e-4)),

@@ -35,7 +35,7 @@ def _carried(j):
     return interop.ivf_pq_index_from_numpy(
         j.centers, j.center_norms, j.centers_rot, j.rotation, j.pq_centers, j.sorted_codes,
         j.lists.offsets, j.lists.sizes, j.lists.ids, j.lists.labels, j.metric, j.window,
-        j.n_rows, j.pq_bits, j.sorted_codes_t, j.sorted_code_norms)
+        j.n_rows, j.pq_bits, j.sorted_codes_t, j.sorted_code_norms, device="cpu")
 
 
 @pytest.fixture(scope="module")

@@ -35,7 +35,7 @@ def _carried(j):
     return interop.ivf_rabitq_index_from_numpy(
         j.centers, j.center_norms, j.rotation, j.centers_rot, j.sorted_codes, j.sorted_fadd,
         j.sorted_frescale, j.lists.offsets, j.lists.sizes, j.lists.ids, j.lists.labels, j.metric,
-        j.window, j.n_rows, j.bits_per_dim, j.sorted_codes_t)
+        j.window, j.n_rows, j.bits_per_dim, j.sorted_codes_t, device="cpu")
 
 
 @pytest.fixture(scope="module")
