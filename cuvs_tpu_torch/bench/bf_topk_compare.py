@@ -53,26 +53,27 @@ def timed(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def build_earlier(csrc: Path) -> ctypes.CDLL:
-    """Compile csrc/bf_topk.cu (with its headers) into a library of its own."""
-    out = csrc / "_build" / "libbf_topk_earlier.so"
+def build_earlier(csrc: Path, sources=("bf_topk.cu",),
+                  entries=("cuvs_bf_topk_exact", "cuvs_bf_topk_approx")) -> ctypes.CDLL:
+    """Compile ``sources`` of an earlier csrc (with its headers) into a
+    library of its own and bind its C ``entries``."""
+    out = csrc / "_build" / f"libearlier_{'_'.join(Path(s).stem for s in sources)}.so"
     out.parent.mkdir(parents=True, exist_ok=True)
     subprocess.run([_lib._nvcc(), *_lib.NVCC_FLAGS, "-I", str(csrc), "-shared", "-o", str(out),
-                    str(csrc / "bf_topk.cu")], check=True)
+                    *(str(csrc / s) for s in sources)], check=True)
     so = ctypes.CDLL(str(out))
-    for name in ("cuvs_bf_topk_exact", "cuvs_bf_topk_approx"):
+    for name in entries:
         fn = getattr(so, name)
         fn.argtypes = _lib._SIGNATURES[name]
         fn.restype = ctypes.c_int
     return so
 
 
-def ptxas_report() -> dict:
-    """{kernel: {"registers": n, "spill_stores": bytes}} of csrc/bf_topk.cu."""
+def ptxas_report(source: str = "bf_topk.cu") -> dict:
+    """{kernel: {"registers": n, "spill_stores": bytes}} of one csrc source."""
     with tempfile.TemporaryDirectory() as tmp:
         log = subprocess.run([_lib._nvcc(), *_lib.NVCC_FLAGS, "-Xptxas", "-v", "-I", str(_lib.CSRC),
-                              "-c", "-o", os.path.join(tmp, "bf_topk.o"),
-                              str(_lib.CSRC / "bf_topk.cu")],
+                              "-c", "-o", os.path.join(tmp, "k.o"), str(_lib.CSRC / source)],
                              capture_output=True, text=True, check=True).stderr
     filt = Path(_lib._nvcc()).with_name("cu++filt")
     out, name = {}, None

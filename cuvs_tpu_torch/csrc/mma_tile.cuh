@@ -1,13 +1,14 @@
-// Tensor-core slice mainloop for the brute-force kernels (bf_topk.cu) on
-// Hopper (sm_90a): bf16 x bf16 -> f32 with mma.sync m16n8k16, and
-// int8 x int8 -> int32 with mma.sync m16n8k32 (exact in any order).
+// Tensor-core slice mainloop for the brute-force kernels (bf_topk.cu) and
+// the IVF-Flat scan (ivf_scan.cu) on Hopper (sm_90a): bf16 x bf16 -> f32 with
+// mma.sync m16n8k16, and int8 x int8 -> int32 with mma.sync m16n8k32 (exact
+// in any order).
 //
-// Replaces the shared-memory FMA / __dp4a mainloop (tile_dot.cuh) under
-// cuvs_tpu/ops/bf_topk_pallas.py::_approx_kernel and, for bf16 and int8
-// rows, under _fused_kernel. What bounds that work on this card is the
-// products (2 * B * N * d operations: 989 TFLOP/s bf16, 1979 TOP/s int8) and,
-// once they run on tensor cores, the bytes of the dataset that each block
-// pulls through L2. The design:
+// Replaces the shared-memory FMA / __dp4a mainloop of the first port under
+// cuvs_tpu/ops/bf_topk_pallas.py::_approx_kernel, for bf16 and int8 rows under
+// _fused_kernel, and under ivf_scan_pallas.py::_scan_kernel. What bounds that
+// work on this card is the products (2 * B * N * d operations: 989 TFLOP/s
+// bf16, 1979 TOP/s int8) and, once they run on tensor cores, the bytes of the
+// dataset that each block pulls through L2. The design:
 //
 //  * A block owns kBQ = 32 * kWM query rows and walks the 128-row slices of
 //    one dataset tile; 4 * kWM warps, each a 32-query x 32-column warp tile
@@ -48,6 +49,11 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 // 16-byte asynchronous copy of src_bytes (the rest of the 16 zero-filled).
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes));
+}
+// 4-byte asynchronous copy of src_bytes (0 or 4; 0 writes a zero word).
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
                "r"(src_bytes));
 }
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
@@ -164,16 +170,22 @@ struct MmaTile {
     return (threadIdx.x / 32 % 4) * 32 + ni * 8 + 2 * (threadIdx.x % 4) + (e & 1);
   }
 
-  // Copy the block's query rows [qb, qb + kBQ) into qs as n_chunks_k(d)
-  // chunk-major [kBQ x 128 B] tiles (rows past B are zeros).
-  static __device__ void stage_queries(char* qs, const T* q, int qb, int B, int d, bool vec) {
+  // Copy the block's query rows into qs as n_chunks_k(d) chunk-major
+  // [kBQ x 128 B] tiles: row_ptr(r) gives row r, or nullptr for zeros.
+  template <typename RowPtr>
+  static __device__ void stage_query_rows(char* qs, RowPtr row_ptr, int d, bool vec) {
     const int nk = n_chunks_k(d);
     for (int i = threadIdx.x; i < nk * kBQ * 8; i += kThreads) {
       const int u = i & 7, r = (i >> 3) % kBQ, kc = (i >> 3) / kBQ;
-      const T* p = qb + r < B ? q + static_cast<size_t>(qb + r) * d : nullptr;
-      stage_unit(qs + static_cast<size_t>(kc) * kBQ * kChunkBytes + swz(r, u), p,
+      stage_unit(qs + static_cast<size_t>(kc) * kBQ * kChunkBytes + swz(r, u), row_ptr(r),
                  kc * kChunkElems + u * (16 / static_cast<int>(sizeof(T))), d, vec);
     }
+  }
+  // Query rows [qb, qb + kBQ) of q (rows past B are zeros).
+  static __device__ void stage_queries(char* qs, const T* q, int qb, int B, int d, bool vec) {
+    stage_query_rows(qs, [&](int r) -> const T* {
+      return qb + r < B ? q + static_cast<size_t>(qb + r) * d : nullptr;
+    }, d, vec);
   }
 
   // Thread t stages 16-byte unit t % 8 of dataset rows t / 8 + (kThreads / 8) m.

@@ -15,43 +15,82 @@
 // f * best as [n_tiles, M, cap*128] f32 plus the uint8 128-slice id of each
 // entry, f = -2 (pq L2) or -1 (pq IP, rabitq).
 //
-// What bounds it on the card: the table lookups. At 1M rows, 4096 queries,
-// 50 probes and pq_dim 64 a batch reads about 3.3e10 entries, one per
-// (slot, row, subspace), at random within each subspace's `book` entries.
-// The TPU kernel turns the lookups into one-hot matmuls because gathers are
-// slow there; on Hopper a shared-memory gather is the natural form, so each
-// slot's whole table lives in shared memory (32 KB in bf16 at 64 x 256) and
-// one 128-thread group per slot walks the window, one thread per lane bin
-// and one 128-row slice after another in order, as csrc/ivf_scan.cu does:
-// that keeps the insertion order, and so the ties, the TPU kernel's. A block
-// holds up to 8 slots (as many tables as fit 227 KB of shared memory) and
-// builds their tables together, reading each codebook column once. Only the
-// pq_len nonzero rows of each column of the block-diagonal cb_t are read.
-// Random lookups into a 256-entry row of the table meet shared-memory bank
-// conflicts; a layout that avoids them is later work. The window's code words
-// are the other cost: read one at a time by each thread, every word would be
-// a device-memory round trip the thread waits for. So the block stages each
-// 128-row slice of the window's words in shared memory first, all of its
-// threads loading at once, coalesced from the transposed [Sw, n_pad] layout,
-// and its slot groups then decode the slice from there through a 64-bit bit
-// buffer that handles codes which straddle two words. The int8 table's scale
-// is the max |lut| over all M slots of a tile, so a first small kernel
-// (pq_lut_absmax_kernel) computes it per tile. Sums: the table entries are
-// f32 sums of exact bf16 products in row order; dots sum s = 0..S-1 in order
-// (f32 for the bf16 table, int32 then times the scale for int8); the epilogue
-// uses __fmul_rn/__fadd_rn so no fused multiply-add changes a rounding. A
-// later version may use mma for the table and a register-blocked scan; this
-// one is simple and right first.
+// What bounds it on the card. At 1M rows, 4096 queries and 50 probes a batch
+// scores about 2e8 (slot, row) pairs, each through S table entries picked at
+// random within a subspace: 1.3e10 lookups for PQ (pq_dim 64), 2.6e10 for
+// RaBitQ (128 dims), and builds a 16384-entry table for each of its 3.4e5
+// slots. The fp32 bound (one add per lookup, the tables' multiply-adds) is
+// 0.6-0.8 ms; issue alone is >= 2 instructions per lookup (widen a bf16
+// entry, add), about 0.9 ms (PQ) and 1.8 ms (RaBitQ) on 132 SMs. The first
+// version spent ~10-15 instructions per lookup, each slot decoding every row
+// again and reading its own table one 2-byte entry at a time, and ran at
+// 2-3% of the fp32 bound. Now (H100, PQ with a bf16 table, ~10.5 ms) about a
+// third is the table build, latency-bound because a 128 KB table leaves one
+// block per SM, and two thirds the scan, where a warp's 32 random 8-byte
+// lookups into a 2 KB subspace row meet ~5-way bank conflicts (RaBitQ's
+// 128-byte rows do not).
+//
+// The design:
+//  * Slot-interleaved tables, decode once per row. A block owns kSlots slots
+//    of one tile; entry e of all its slots sits in one 16-, 8-, 4- or 2-byte
+//    word, lut[e * kSlots + g], so a window row's codes are decoded once for
+//    the block and one shared-memory load per code returns the entry for
+//    every slot, into one accumulator per slot. Decode and address work and
+//    the number of loads drop kSlots-fold. A code >= book selects entry
+//    S*book, a zero word: adding +0 leaves any sum unchanged, so no branch is
+//    needed. Slots per block (plan()): two blocks per SM where 4 or 8 slots
+//    fit half the shared memory, so one block's scan hides the other's table
+//    build (RaBitQ 3-bit: 8 slots, 16 KB of table; PQ int8: 4 slots, 64 KB),
+//    else as many as fit (PQ bf16: 4 slots, 128 KB).
+//  * The table build reads each codebook row 4 entries at a time (8 bytes),
+//    reuses each query value for the 4, and writes the block's interleaved
+//    words 16 bytes at a time. int8 entries round v / scale by a multiply
+//    with the reciprocal, and by the IEEE division only near a half-integer,
+//    where the two could round apart.
+//  * Codes: PQ's 8-bit and RaBitQ's 3-bit codes with a full book decode
+//    with compile-time shifts (one funnel shift where a code straddles two
+//    words) and index the table with no book test; other widths and books
+//    go through a 64-bit bit buffer.
+//  * Rows in flight: kT = 4 threads per window row (512 per block), thread
+//    j summing code share j of the row for every slot: the periods j, j + 4,
+//    ... of 8-bit and 3-bit codes (a period is the fewest codes that fill
+//    whole words), or the j-th quarter of the codes otherwise. The four
+//    partial sums meet in shared memory and are added in the order
+//    j = 0..3. The code words of each 128-row slice are staged by cp.async
+//    into a two-stage ring while the last slice is scored (slice 0 while the
+//    table is built): one barrier per slice, and a slice's epilogue runs
+//    after the next slice's barrier.
+//  * The chain stays whole. Thread j keeps the cap-deep bins of lane `lane`
+//    for slots j, j + 4, ... and inserts each slice in order, as the TPU
+//    kernel does. Splitting a window's slices between thread groups and
+//    merging their bins would not give the chain's result: at exact ties the
+//    chain is not a stable top-cap (x at slice 3, x at slice 5, then v > x at
+//    slice 7 leaves [v@7, x@5], the displaced x@3 dropped at the equal x@5),
+//    so no merge of per-group lists reproduces it.
+//  * Sums: table entries are f32 sums of exact bf16 products in row order.
+//    int8 tables sum in exact int32, then times the scale: pools bit-identical
+//    to the plain version's. bf16 tables sum each quarter in f32 in code
+//    order and then the quarters, which reorders the f32 sum of S terms (a
+//    few ulp of the score; the plain version sums s = 0..S-1). The epilogue
+//    uses __fmul_rn/__fadd_rn, so no fused multiply-add changes a rounding.
+//  * The int8 table's scale is the max |lut| over all M slots of a tile,
+//    across blocks: a first kernel (pq_lut_absmax_kernel) computes it per tile
+//    with the same sums, without storing a table (~2.8 ms of the ~13.5).
+#include "mma_tile.cuh"
+
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <algorithm>
+
 namespace cuvs_tpu_torch {
 namespace pq {
 
-constexpr int kLanes = 128;      // threads per slot group = lane bins
-constexpr int kMaxGroups = 8;    // slots per block
+constexpr int kLanes = 128;      // threads per group = lane bins = rows per slice
+constexpr int kMaxGroups = 8;    // most slots per scan block
+constexpr int kT = 4;            // threads per window row of a scan block
 constexpr int kMaxCap = 32;
 constexpr int kSmemMax = 232448;  // 227 KB of dynamic shared memory per block
 
@@ -71,6 +110,8 @@ struct Args {
   int nw;  // word rows holding a row's S codes: ceil(S * bits / 32)
   int M, dp, S, book, bits, pq_len, W, cap;
   int rabitq, ip, use_pen, int8_mode;
+  int vec;        // codes and n_pad allow 16-byte copies of 4 rows
+  int book_log2;  // log2(book) for a power-of-two book, else -1
   float* absmax;  // [n_tiles] max |lut| per tile (int8 mode)
   float* out_v;
   uint8_t* out_i;
@@ -102,202 +143,581 @@ __device__ void load_qrows(const Args& a, int t, int m0, int G, float* qs) {
   }
 }
 
-// Table entry e of every slot of the block: acc[g] = sum over the column's
-// pq_len nonzero rows of qs[g][j] * cb[j][e], in row order. Each product of
-// two bf16 values is exact in f32. The codebook values are read kRows at a
-// time, so their loads are in flight together.
-__device__ __forceinline__ void lut_entries(const Args& a, const float* qs, int G, int e,
-                                            float (&acc)[kMaxGroups]) {
-  constexpr int kRows = 4;
-#pragma unroll
-  for (int g = 0; g < kMaxGroups; ++g) acc[g] = 0.f;
+// visit(e, acc) for every table entry e < n_e of this thread (e = threadIdx.x
+// + i * blockDim.x), acc[g] = sum over the column's pq_len nonzero rows of
+// qs[g][j] * cb[j][e] for the block's slots g < G, in row order (each product
+// of two bf16 values is exact in f32); entries e >= S*book are zero. The
+// codebook is read kB entries x 2 rows at a time, so that many loads are in
+// flight together: one entry at a time, every warp of the block would wait
+// out an L2 round trip per entry.
+template <int kG, typename Visit>
+__device__ __forceinline__ void lut_entries(const Args& a, const float* qs, int G, int n_e,
+                                            Visit visit) {
+  constexpr int kB = 32 / kG < 4 ? 4 : (32 / kG > 8 ? 8 : 32 / kG), kRows = 2;
   const int SB = a.S * a.book;
-  const int j0 = (e / a.book) * a.pq_len;
-  const int L = max(0, min(a.pq_len, a.dp - j0));
-  for (int l0 = 0; l0 < L; l0 += kRows) {
-    float c[kRows];
+  for (int e0 = threadIdx.x; e0 < n_e; e0 += kB * blockDim.x) {
+    float acc[kB][kG];
+    int j0[kB], L[kB];
 #pragma unroll
-    for (int u = 0; u < kRows; ++u)
-      c[u] = l0 + u < L ? __bfloat162float(__ldg(a.cb + static_cast<size_t>(j0 + l0 + u) * SB + e))
+    for (int b = 0; b < kB; ++b) {
+      const int e = e0 + b * blockDim.x;
+      j0[b] = (a.book_log2 >= 0 ? e >> a.book_log2 : e / a.book) * a.pq_len;
+      L[b] = e < SB ? max(0, min(a.pq_len, a.dp - j0[b])) : 0;
+#pragma unroll
+      for (int g = 0; g < kG; ++g) acc[b][g] = 0.f;
+    }
+    for (int l0 = 0; l0 < a.pq_len; l0 += kRows) {
+      float c[kB][kRows];
+#pragma unroll
+      for (int b = 0; b < kB; ++b)
+#pragma unroll
+        for (int u = 0; u < kRows; ++u)
+          c[b][u] = l0 + u < L[b]
+                        ? __bfloat162float(__ldg(a.cb + static_cast<size_t>(j0[b] + l0 + u) * SB +
+                                                 e0 + b * blockDim.x))
                         : 0.f;
 #pragma unroll
-    for (int u = 0; u < kRows; ++u) {
-      if (l0 + u >= L) break;
-      const int j = j0 + l0 + u;
+      for (int b = 0; b < kB; ++b)
 #pragma unroll
-      for (int g = 0; g < kMaxGroups; ++g)
-        if (g < G) acc[g] = fmaf(qs[g * a.dp + j], c[u], acc[g]);
+        for (int u = 0; u < kRows; ++u) {
+          if (l0 + u >= L[b]) continue;
+          const int j = j0[b] + l0 + u;
+#pragma unroll
+          for (int g = 0; g < kG; ++g)
+            if (g < G) acc[b][g] = fmaf(qs[g * a.dp + j], c[b][u], acc[b][g]);
+        }
     }
+#pragma unroll
+    for (int b = 0; b < kB; ++b)
+      if (e0 + b * blockDim.x < n_e) visit(e0 + b * blockDim.x, acc[b]);
   }
 }
 
-// Per-tile max |lut| over all M slots (int8 tables only). grid = (n_tiles,
-// ceil(M / G)); absmax must be zeroed: non-negative floats order as their
-// int bit patterns, so atomicMax on the bits takes the max.
-__global__ void __launch_bounds__(kLanes* kMaxGroups) pq_lut_absmax_kernel(Args a) {
+// The same entries four at a time where book % 4 == 0: thread i builds
+// entries 4i .. 4i + 3 of one subspace, so one 8-byte load per codebook row
+// gives all four columns and each query value, read once, feeds four
+// multiply-adds per slot. visit4(e0, acc[4][kG]) for each quad e0 < S*book,
+// the same sums in the same order as lut_entries.
+template <int kG, typename Visit>
+__device__ __forceinline__ void lut_quads(const Args& a, const float* qs, int G, Visit visit4) {
+  constexpr int kB = kG >= 8 ? 1 : 2;  // quads per thread in flight
+  const int SB = a.S * a.book, n4 = SB / 4;
+  for (int i0 = threadIdx.x; i0 < n4; i0 += kB * blockDim.x) {
+    float acc[kB][4][kG];
+    int j0[kB], L[kB];
+#pragma unroll
+    for (int b = 0; b < kB; ++b) {
+      const int e0 = 4 * (i0 + b * blockDim.x);
+      j0[b] = (a.book_log2 >= 0 ? e0 >> a.book_log2 : e0 / a.book) * a.pq_len;
+      L[b] = e0 < SB ? max(0, min(a.pq_len, a.dp - j0[b])) : 0;
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+#pragma unroll
+        for (int g = 0; g < kG; ++g) acc[b][c][g] = 0.f;
+    }
+    for (int l = 0; l < a.pq_len; ++l) {
+      uint2 w[kB];
+#pragma unroll
+      for (int b = 0; b < kB; ++b)
+        w[b] = l < L[b] ? __ldg(reinterpret_cast<const uint2*>(
+                              a.cb + static_cast<size_t>(j0[b] + l) * SB + 4 * (i0 + b * blockDim.x)))
+                        : make_uint2(0, 0);
+#pragma unroll
+      for (int b = 0; b < kB; ++b) {
+        if (l >= L[b]) continue;
+        const float c[4] = {__uint_as_float(w[b].x << 16), __uint_as_float(w[b].x & 0xffff0000u),
+                            __uint_as_float(w[b].y << 16), __uint_as_float(w[b].y & 0xffff0000u)};
+#pragma unroll
+        for (int g = 0; g < kG; ++g) {
+          if (g >= G) continue;
+          const float qv = qs[g * a.dp + j0[b] + l];
+#pragma unroll
+          for (int k = 0; k < 4; ++k) acc[b][k][g] = fmaf(qv, c[k], acc[b][k][g]);
+        }
+      }
+    }
+#pragma unroll
+    for (int b = 0; b < kB; ++b)
+      if (i0 + b * blockDim.x < n4) visit4(4 * (i0 + b * blockDim.x), acc[b]);
+  }
+}
+
+// rint(v / ls) as the plain version computes it (an IEEE division, then
+// round half to even), for |v / ls| <= 127: v * (1 / ls) lies within a few ulp
+// of the true quotient, so it rounds to the same integer unless it is near a
+// half-integer, and only then is the division taken.
+__device__ __forceinline__ int8_t quantize(float v, float ls, float inv_ls) {
+  float y = v * inv_ls;
+  if (fabsf(fabsf(y - truncf(y)) - 0.5f) < 1e-3f) y = __fdiv_rn(v, ls);
+  return static_cast<int8_t>(rintf(y));
+}
+
+// Store kWords words to 16-byte aligned shared memory, 16 bytes at a time
+// where they allow.
+template <int kWords>
+__device__ __forceinline__ void store_words(void* dst, const uint32_t (&w)[kWords]) {
+  if constexpr (kWords % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < kWords; i += 4)
+      reinterpret_cast<uint4*>(dst)[i / 4] = make_uint4(w[i], w[i + 1], w[i + 2], w[i + 3]);
+  } else if constexpr (kWords == 2) {
+    *reinterpret_cast<uint2*>(dst) = make_uint2(w[0], w[1]);
+  } else {
+    *reinterpret_cast<uint32_t*>(dst) = w[0];
+  }
+}
+
+// Table entries e0 .. e0 + 3 of the block's kSlots slots, interleaved, as
+// words: bf16 rounded, or int8 at scale ls (|lut/ls| <= 127: no clip needed).
+template <typename T, int kSlots>
+__device__ __forceinline__ void store_quad(T* lut, int e0, const float (&acc)[4][kSlots], float ls,
+                                           float inv_ls) {
+  constexpr int kPer = 4 / static_cast<int>(sizeof(T));  // values per word
+  constexpr int kWords = 4 * kSlots / kPer;
+  uint32_t w[kWords];
+#pragma unroll
+  for (int i = 0; i < kWords; ++i) w[i] = 0;
+#pragma unroll
+  for (int k = 0; k < 4 * kSlots; ++k) {
+    const float v = acc[k / kSlots][k % kSlots];
+    uint32_t bits;
+    if constexpr (sizeof(T) == 1)
+      bits = static_cast<uint8_t>(quantize(v, ls, inv_ls));
+    else
+      bits = __bfloat16_as_ushort(__float2bfloat16_rn(v));
+    w[k / kPer] |= bits << (32 / kPer * (k % kPer));
+  }
+  store_words<kWords>(lut + static_cast<size_t>(e0) * kSlots, w);
+}
+
+// Per-tile max |lut| over all M slots (int8 tables only), which fixes the
+// tile's scale before any block quantizes its table. Block (t, eb) owns
+// kAbsThreads quads of table entries of tile t (single entries where
+// book % 4 != 0) for every slot: a thread holds the codebook values of its
+// entries (kAbsL rows in registers) and walks the slots, 16 KB of query rows
+// at a time in shared memory, with four accumulators, so nothing caps the
+// block's occupancy. The sums are lut_quads'. absmax must be zeroed:
+// non-negative floats order as their int bit patterns, so atomicMax on the
+// bits takes the max.
+constexpr int kAbsThreads = 256, kAbsL = 4;
+constexpr size_t kAbsQBytes = 16 * 1024;  // query rows staged at once
+
+__global__ void __launch_bounds__(kAbsThreads) pq_lut_absmax_kernel(Args a, int n_eb, int chunk) {
   extern __shared__ __align__(16) unsigned char smem[];
-  float* qs = reinterpret_cast<float*>(smem);
-  __shared__ float warp_max[kLanes * kMaxGroups / 32];
-  const int G = blockDim.x / kLanes;
-  const int t = blockIdx.x, m0 = blockIdx.y * G;
+  float* qs = reinterpret_cast<float*>(smem);  // [chunk][dp]
+  __shared__ float warp_max[kAbsThreads / 32];
+  const int t = blockIdx.x / n_eb, eb = blockIdx.x % n_eb;
   int cc_lo;
   const int cc_hi = tile_slices(a, t, &cc_lo);
   if (cc_hi <= cc_lo) return;  // empty tile: no scale needed
-  load_qrows(a, t, m0, G, qs);
-  __syncthreads();
   const int SB = a.S * a.book;
-  const int live = min(G, a.M - m0);
-  float mx = 0.f;
-  for (int e = threadIdx.x; e < SB; e += blockDim.x) {
-    float acc[kMaxGroups];
-    lut_entries(a, qs, live, e, acc);
+  const bool quad = a.book % 4 == 0;  // else one entry per thread
+  const int e0 = (eb * kAbsThreads + static_cast<int>(threadIdx.x)) * (quad ? 4 : 1);
+  const int j0 = (a.book_log2 >= 0 ? e0 >> a.book_log2 : e0 / a.book) * a.pq_len;
+  const int L = e0 < SB ? max(0, min(a.pq_len, a.dp - j0)) : 0;
+  auto load_c = [&](int l, float (&c)[4]) {
+    const __nv_bfloat16* p = a.cb + static_cast<size_t>(j0 + l) * SB + e0;
+    if (quad) {
+      const uint2 w = __ldg(reinterpret_cast<const uint2*>(p));
+      c[0] = __uint_as_float(w.x << 16), c[1] = __uint_as_float(w.x & 0xffff0000u);
+      c[2] = __uint_as_float(w.y << 16), c[3] = __uint_as_float(w.y & 0xffff0000u);
+    } else {
+      c[0] = __bfloat162float(__ldg(p)), c[1] = c[2] = c[3] = 0.f;
+    }
+  };
+  float creg[kAbsL][4];
 #pragma unroll
-    for (int g = 0; g < kMaxGroups; ++g)
-      if (g < live) mx = fmaxf(mx, fabsf(acc[g]));
+  for (int l = 0; l < kAbsL; ++l)
+    if (l < L) load_c(l, creg[l]);
+  float mx = 0.f;
+  for (int m0 = 0; m0 < a.M; m0 += chunk) {
+    const int G = min(chunk, a.M - m0);
+    __syncthreads();  // the last chunk's rows are read
+    load_qrows(a, t, m0, G, qs);
+    __syncthreads();
+    for (int g = 0; g < G; ++g) {
+      const float* qg = qs + g * a.dp + j0;
+      float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int l = 0; l < kAbsL; ++l) {
+        if (l >= L) break;
+        const float qv = qg[l];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) acc[k] = fmaf(qv, creg[l][k], acc[k]);
+      }
+      for (int l = kAbsL; l < L; ++l) {  // rows past the registers: from L1
+        float c[4];
+        load_c(l, c);
+        const float qv = qg[l];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) acc[k] = fmaf(qv, c[k], acc[k]);
+      }
+#pragma unroll
+      for (int k = 0; k < 4; ++k) mx = fmaxf(mx, fabsf(acc[k]));
+    }
   }
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
   if (threadIdx.x % 32 == 0) warp_max[threadIdx.x / 32] = mx;
   __syncthreads();
   if (threadIdx.x == 0) {
-    for (int w = 1; w < static_cast<int>(blockDim.x) / 32; ++w) mx = fmaxf(mx, warp_max[w]);
+    for (int w = 1; w < kAbsThreads / 32; ++w) mx = fmaxf(mx, warp_max[w]);
     atomicMax(reinterpret_cast<int*>(a.absmax) + t, __float_as_int(mx));
   }
 }
 
-// kCap > 0: compile-time depth, state in registers. kCap == 0: runtime depth
-// cap <= kMaxCap, state in thread-local memory. grid = (n_tiles, ceil(M / G)),
-// G*128 threads; thread (g, lane) owns slot m0 + g and lane bin `lane`.
-// Shared memory: the slots' query rows, one slice of code words, the tables.
-template <int kCap>
-__global__ void __launch_bounds__(kLanes* kMaxGroups, 2) pq_scan_kernel(Args a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int kDepth = kCap > 0 ? kCap : kMaxCap;
-  const int cap = kCap > 0 ? kCap : a.cap;
-  const int G = blockDim.x / kLanes;
-  const int g = threadIdx.x / kLanes, lane = threadIdx.x % kLanes;
-  const int t = blockIdx.x, m0 = blockIdx.y * G, m = m0 + g;
-  const bool slot = m < a.M;  // this thread's slot exists (it still stages words)
-  const int SB = a.S * a.book;
-  const size_t lut_stride = align16(static_cast<size_t>(SB) * (a.int8_mode ? 1 : 2));
-  float* qs = reinterpret_cast<float*>(smem);
-  uint32_t* sw = reinterpret_cast<uint32_t*>(
-      smem + align16(static_cast<size_t>(G) * a.dp * sizeof(float)));
-  unsigned char* luts =
-      reinterpret_cast<unsigned char*>(sw) + align16(static_cast<size_t>(a.nw) * kLanes * 4);
-  const float f = (a.ip || a.rabitq) ? -1.f : -2.f;
+// ---------------------------------------------------------------------------
+// Interleaved table entries
+// ---------------------------------------------------------------------------
 
-  float best[kDepth];
-  int bidx[kDepth];
-  for (int r = 0; r < cap; ++r) {
-    best[r] = -INFINITY;
-    bidx[r] = 0;
-  }
-  int cc_lo;
-  const int cc_hi = tile_slices(a, t, &cc_lo);
-  if (cc_hi > cc_lo) {  // uniform in the block
-    const int live = min(G, a.M - m0);
-    load_qrows(a, t, m0, G, qs);
-    __syncthreads();
-    const float ls = a.int8_mode ? __fdiv_rn(fmaxf(a.absmax[t], 1e-30f), 127.f) : 1.f;
-#pragma unroll 2
-    for (int e = threadIdx.x; e < SB; e += blockDim.x) {
-      float acc[kMaxGroups];
-      lut_entries(a, qs, live, e, acc);
-#pragma unroll
-      for (int gg = 0; gg < kMaxGroups; ++gg) {
-        if (gg >= live) continue;
-        unsigned char* lut = luts + gg * lut_stride;
-        if (a.int8_mode)  // |lut/ls| <= 127 by construction: no clip needed
-          reinterpret_cast<int8_t*>(lut)[e] = static_cast<int8_t>(rintf(__fdiv_rn(acc[gg], ls)));
-        else
-          reinterpret_cast<__nv_bfloat16*>(lut)[e] = __float2bfloat16_rn(acc[gg]);
-      }
-    }
-
-    const int8_t* lut8 = reinterpret_cast<const int8_t*>(luts + g * lut_stride);
-    const __nv_bfloat16* lut16 = reinterpret_cast<const __nv_bfloat16*>(luts + g * lut_stride);
-    const uint64_t mask = a.bits >= 32 ? 0xffffffffull : ((1ull << a.bits) - 1);
-    const int base = a.al[t];
-    const int l = a.lo[t], h = l + a.sizes[t];
-    for (int cc = cc_lo; cc < cc_hi; ++cc) {
-      // stage the slice's words: sw[i * 128 + r] = word i of window row
-      // cc*128 + r (codes[i * n_pad + row]); the barrier before it also
-      // publishes the tables on the first slice
-      __syncthreads();
-      for (int e = threadIdx.x; e < a.nw * kLanes; e += blockDim.x) {
-        const int row = base + cc * kLanes + e % kLanes;
-        sw[e] = row < a.n_pad ? __ldg(a.codes + static_cast<size_t>(e / kLanes) * a.n_pad + row)
-                              : 0u;
-      }
-      __syncthreads();
-      const int pos = cc * kLanes + lane;
-      if (!slot || pos < l || pos >= h) continue;  // outside the list: -inf, never inserted
-      const int row = base + pos;
-      // decode through a 64-bit bit buffer: a code that straddles two words
-      // takes its high bits from the next one
-      uint64_t buf = 0;
-      int have = 0, wi = 0;
-      float accf = 0.f;
-      int acci = 0;
-      for (int s = 0; s < a.S; ++s) {
-        if (have < a.bits) {
-          buf |= static_cast<uint64_t>(sw[wi * kLanes + lane]) << have;
-          have += 32;
-          ++wi;
-        }
-        const int code = static_cast<int>(buf & mask);
-        buf >>= a.bits;
-        have -= a.bits;
-        if (code >= a.book) continue;  // an out-of-book code selects nothing
-        const int e = s * a.book + code;
-        if (a.int8_mode)
-          acci += lut8[e];
-        else
-          accf = __fadd_rn(accf, __bfloat162float(lut16[e]));
-      }
-      const float dots = a.int8_mode ? __fmul_rn(static_cast<float>(acci), ls) : accf;
-      const float nrm = row < a.n_norms ? a.norms[row] : 0.f;
-      float v;
-      if (a.rabitq) {
-        const float frv = row < a.n_norms ? a.fr[row] : 0.f;
-        v = -__fadd_rn(nrm, __fmul_rn(frv, dots));
-      } else {
-        const float pen = a.ip ? (a.use_pen ? nrm : 0.f) : __fmul_rn(nrm, 0.5f);
-        v = __fsub_rn(dots, pen);
-      }
-      if (!(v > best[cap - 1])) continue;  // below the whole bin: no change
-      int vi = cc;
-      for (int r = 0; r < cap; ++r) {
-        if (v > best[r]) {
-          const float ob = best[r];
-          const int oi = bidx[r];
-          best[r] = v;
-          bidx[r] = vi;
-          v = ob;
-          vi = oi;
-        }
-      }
-    }
-  }
-  if (!slot) return;
-  const size_t o = (static_cast<size_t>(t) * a.M + m) * (cap * kLanes);
-  for (int r = 0; r < cap; ++r) {
-    a.out_v[o + r * kLanes + lane] = f * best[r];
-    a.out_i[o + r * kLanes + lane] = static_cast<uint8_t>(bidx[r]);
+template <int kWords>
+__device__ __forceinline__ void load_words(const uint32_t* p, uint32_t (&w)[kWords]) {
+  if constexpr (kWords == 4) {
+    const uint4 v = *reinterpret_cast<const uint4*>(p);
+    w[0] = v.x, w[1] = v.y, w[2] = v.z, w[3] = v.w;
+  } else if constexpr (kWords == 2) {
+    const uint2 v = *reinterpret_cast<const uint2*>(p);
+    w[0] = v.x, w[1] = v.y;
+  } else {
+    w[0] = *p;
   }
 }
 
-template <typename K>
-cudaError_t launch(K kernel, dim3 grid, dim3 block, size_t smem, cudaStream_t st, const Args& a) {
+// acc[g] += slot g's value of interleaved entry e, for every slot of the block.
+// bf16 -> f32 is exact (the bf16 bits are the f32's high half).
+template <int kSlots>
+__device__ __forceinline__ void add_entry(const __nv_bfloat16* lut, int e, float (&acc)[kSlots]) {
+  if constexpr (kSlots == 1) {
+    acc[0] = __fadd_rn(acc[0], __bfloat162float(lut[e]));
+  } else {
+    constexpr int kW = kSlots / 2;
+    uint32_t w[kW];
+    load_words<kW>(reinterpret_cast<const uint32_t*>(lut) + e * kW, w);
+#pragma unroll
+    for (int i = 0; i < kW; ++i) {
+      acc[2 * i] = __fadd_rn(acc[2 * i], __uint_as_float(w[i] << 16));
+      acc[2 * i + 1] = __fadd_rn(acc[2 * i + 1], __uint_as_float(w[i] & 0xffff0000u));
+    }
+  }
+}
+template <int kSlots>
+__device__ __forceinline__ void add_entry(const int8_t* lut, int e, int (&acc)[kSlots]) {
+  if constexpr (kSlots < 4) {
+#pragma unroll
+    for (int g = 0; g < kSlots; ++g) acc[g] += lut[e * kSlots + g];
+  } else {
+    constexpr int kW = kSlots / 4;
+    uint32_t w[kW];
+    load_words<kW>(reinterpret_cast<const uint32_t*>(lut) + e * kW, w);
+#pragma unroll
+    for (int i = 0; i < kW; ++i)
+#pragma unroll
+      for (int b = 0; b < 4; ++b) acc[4 * i + b] += static_cast<int8_t>(w[i] >> (8 * b));
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Scan
+// ---------------------------------------------------------------------------
+
+__host__ __device__ constexpr int gcd_c(int a, int b) { return b == 0 ? a : gcd_c(b, a % b); }
+
+// T: table type (bf16, or int8 with int8_mode). kSlots slots per block.
+// kCap > 0: compile-time depth, state in registers; kCap == 0: runtime depth
+// cap <= kMaxCap in thread-local memory (one slot per block). kBits > 0:
+// compile-time code width and book == 2^kBits; 0: any width and book, through
+// a 64-bit bit buffer.
+// n_tiles * ceil(M / kSlots) blocks, kT * 128 threads: thread (j, lane)
+// sums code share j of window row `lane` of each slice for every slot, and
+// keeps the bins of lane `lane` of slots j, j + kT, ...
+// Shared memory: the slots' query rows, the interleaved table (+ one zero
+// entry), a two-stage ring of one slice's code words sw[stage][w][lane], and
+// two stages of partial sums part[stage][j][g][lane].
+template <typename T, int kSlots, int kCap, int kBits, int kMinBlocks>
+__global__ void __launch_bounds__(kLanes* kT, kMinBlocks) pq_scan_kernel(Args a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  using Acc = typename std::conditional<std::is_same<T, int8_t>::value, int, float>::type;
+  constexpr int kDepth = kCap > 0 ? kCap : kMaxCap;
+  constexpr int kOwn = (kSlots + kT - 1) / kT;  // slots whose bins a thread keeps
+  const int cap = kCap > 0 ? kCap : a.cap;
+  const int j = threadIdx.x / kLanes, lane = threadIdx.x % kLanes;
+  const int n_groups = (a.M + kSlots - 1) / kSlots;  // a tile's blocks are adjacent
+  const int t = blockIdx.x / n_groups, m0 = blockIdx.x % n_groups * kSlots;
+  const int SB = a.S * a.book;
+  float* qs = reinterpret_cast<float*>(smem);
+  T* lut = reinterpret_cast<T*>(smem + align16(static_cast<size_t>(kSlots) * a.dp * sizeof(float)));
+  uint32_t* ring = reinterpret_cast<uint32_t*>(
+      reinterpret_cast<unsigned char*>(lut) +
+      align16(static_cast<size_t>(SB + 1) * kSlots * sizeof(T)));
+  Acc* part = reinterpret_cast<Acc*>(ring + 2 * a.nw * kLanes);  // [2][kT][kSlots][128]
+  const float f = (a.ip || a.rabitq) ? -1.f : -2.f;
+
+  float best[kOwn][kDepth];
+  int bidx[kOwn][kDepth];
+#pragma unroll
+  for (int u = 0; u < kOwn; ++u)
+    for (int r = 0; r < cap; ++r) {
+      best[u][r] = -INFINITY;
+      bidx[u][r] = 0;
+    }
+  int cc_lo;
+  const int cc_hi = tile_slices(a, t, &cc_lo);
+  if (cc_hi > cc_lo) {  // uniform in the block
+    const int base = a.al[t];
+    const int l = a.lo[t], h = l + a.sizes[t];
+    const int stage_words = a.nw * kLanes;
+    // code words of slice cc_lo + i into ring slot `slot`, 4 rows per copy
+    auto stage = [&](int i, int slot) {
+      uint32_t* dst = ring + slot * stage_words;
+      const int row0 = base + (cc_lo + i) * kLanes;
+      for (int u = threadIdx.x; u < stage_words / 4; u += blockDim.x) {
+        const int w = u / (kLanes / 4), r = (u % (kLanes / 4)) * 4, row = row0 + r;
+        const uint32_t* src = a.codes + static_cast<size_t>(w) * a.n_pad;
+        uint32_t* d = dst + w * kLanes + r;
+        // rows past n_pad read as zeros (from a valid address, no bytes)
+        if (a.vec) {
+          const int n = max(0, min(4, a.n_pad - row));
+          cp_async16(smem_addr(d), n > 0 ? src + row : a.codes, 4 * n);
+        } else {
+#pragma unroll
+          for (int b = 0; b < 4; ++b) {
+            const bool in = row + b < a.n_pad;
+            cp_async4(smem_addr(d + b), in ? src + row + b : a.codes, in ? 4 : 0);
+          }
+        }
+      }
+    };
+    stage(0, 0);  // in flight while the table is built
+    cp_async_commit();
+    const int live = min(kSlots, a.M - m0);
+    load_qrows(a, t, m0, kSlots, qs);
+    __syncthreads();
+    const float ls = a.int8_mode ? __fdiv_rn(fmaxf(a.absmax[t], 1e-30f), 127.f) : 1.f;
+    const float inv_ls = 1.f / ls;
+    auto store = [&](int e, const float (&acc)[kSlots]) {
+#pragma unroll
+      for (int g = 0; g < kSlots; ++g) {
+        if constexpr (std::is_same<T, int8_t>::value)  // |lut/ls| <= 127: no clip needed
+          lut[e * kSlots + g] = quantize(acc[g], ls, inv_ls);
+        else
+          lut[e * kSlots + g] = __float2bfloat16_rn(acc[g]);
+      }
+    };
+    // entry SB, zero, is what an out-of-book code selects
+    if (a.book % 4 == 0) {
+      lut_quads<kSlots>(a, qs, live, [&](int e0, const float (&acc)[4][kSlots]) {
+        store_quad<T, kSlots>(lut, e0, acc, ls, inv_ls);
+      });
+      if (threadIdx.x == 0) store(SB, {});
+    } else {
+      lut_entries<kSlots>(a, qs, live, SB + 1, store);
+    }
+
+    const uint32_t mask = a.bits >= 32 ? 0xffffffffu : ((1u << a.bits) - 1);
+    // slice i's epilogue: the kT partial sums of each owned slot, added in
+    // order j = 0..kT-1, then the chain
+    auto epilogue = [&](int i) {
+      const int cc = cc_lo + i, pos = cc * kLanes + lane;
+      if (pos < l || pos >= h) return;  // outside the list: -inf, never inserted
+      const int row = base + pos;
+      const float nrm = row < a.n_norms ? a.norms[row] : 0.f;
+      const float frv = a.rabitq && row < a.n_norms ? a.fr[row] : 0.f;
+      const Acc* pp = part + (i & 1) * (kT * kSlots * kLanes) + lane;
+#pragma unroll
+      for (int u = 0; u < kOwn; ++u) {
+        const int g = j + kT * u;
+        if (g >= kSlots) continue;
+        Acc s = pp[g * kLanes];
+#pragma unroll
+        for (int jj = 1; jj < kT; ++jj) {
+          if constexpr (std::is_same<T, int8_t>::value)
+            s += pp[(jj * kSlots + g) * kLanes];
+          else
+            s = __fadd_rn(s, pp[(jj * kSlots + g) * kLanes]);
+        }
+        const float dots =
+            a.int8_mode ? __fmul_rn(static_cast<float>(s), ls) : static_cast<float>(s);
+        float v;
+        if (a.rabitq) {
+          v = -__fadd_rn(nrm, __fmul_rn(frv, dots));
+        } else {
+          const float pen = a.ip ? (a.use_pen ? nrm : 0.f) : __fmul_rn(nrm, 0.5f);
+          v = __fsub_rn(dots, pen);
+        }
+        if (!(v > best[u][cap - 1])) continue;  // below the whole bin: no change
+        int vi = cc;
+        for (int r = 0; r < cap; ++r) {
+          if (v > best[u][r]) {
+            const float ob = best[u][r];
+            const int oi = bidx[u][r];
+            best[u][r] = v;
+            bidx[u][r] = vi;
+            v = ob;
+            vi = oi;
+          }
+        }
+      }
+    };
+    auto score = [&](int i, int slot) {
+      if (i > 0) epilogue(i - 1);  // its partials were published by the barrier
+      const int pos = (cc_lo + i) * kLanes + lane;
+      if (pos < l || pos >= h) return;
+      const uint32_t* sw = ring + slot * stage_words + lane;
+      Acc acc[kSlots];
+#pragma unroll
+      for (int g = 0; g < kSlots; ++g) acc[g] = Acc(0);
+      auto lookup = [&](int s, uint32_t code) {
+        if constexpr (kBits > 0)  // book == 2^kBits: every code is in the book
+          add_entry<kSlots>(lut, (s << kBits) | static_cast<int>(code), acc);
+        else
+          add_entry<kSlots>(lut,
+                            code < static_cast<uint32_t>(a.book)
+                                ? s * a.book + static_cast<int>(code)
+                                : SB,
+                            acc);
+      };
+      if constexpr (kBits > 0) {
+        // periods of kP codes in kWp whole words, periods j, j + kT, ...:
+        // constant shifts, a funnel shift where a code straddles two words
+        constexpr int kWp = kBits / gcd_c(32, kBits), kP = 32 / gcd_c(32, kBits);
+        constexpr uint32_t kMask = kBits >= 32 ? 0xffffffffu : (1u << kBits) - 1;
+#pragma unroll 4
+        for (int p = j; p * kP < a.S; p += kT) {
+          uint32_t wd[kWp];
+#pragma unroll
+          for (int i2 = 0; i2 < kWp; ++i2)
+            wd[i2] = p * kWp + i2 < a.nw ? sw[(p * kWp + i2) * kLanes] : 0u;
+#pragma unroll
+          for (int c = 0; c < kP; ++c) {
+            const int bit = c * kBits, w = bit / 32, o = bit % 32;
+            const uint32_t code =
+                (o + kBits <= 32 ? wd[w] >> o
+                                 : __funnelshift_r(wd[w], wd[w + 1 < kWp ? w + 1 : w], o)) &
+                kMask;
+            if (p * kP + c < a.S) lookup(p * kP + c, code);
+          }
+        }
+      } else {
+        // codes [s_a, s_b) through a 64-bit bit buffer: a code that
+        // straddles two words takes its high bits from the next one
+        const int Sc = (a.S + kT - 1) / kT;
+        const int s_a = j * Sc, s_b = min(a.S, s_a + Sc);
+        if (s_a < s_b) {
+          const long long b0 = static_cast<long long>(s_a) * a.bits;
+          int wi = static_cast<int>(b0 / 32);
+          uint64_t buf = sw[wi * kLanes] >> (b0 % 32);
+          int have = 32 - static_cast<int>(b0 % 32);
+          ++wi;
+          for (int s = s_a; s < s_b; ++s) {
+            if (have < a.bits) {
+              buf |= static_cast<uint64_t>(sw[wi * kLanes]) << have;
+              have += 32;
+              ++wi;
+            }
+            lookup(s, static_cast<uint32_t>(buf) & mask);
+            buf >>= a.bits;
+            have -= a.bits;
+          }
+        }
+      }
+      Acc* pp = part + (i & 1) * (kT * kSlots * kLanes) + j * kSlots * kLanes + lane;
+#pragma unroll
+      for (int g = 0; g < kSlots; ++g) pp[g * kLanes] = acc[g];
+    };
+    // two-stage ring: slice i + 1's words load while slice i is scored; the
+    // barrier at the top also publishes the table and slice i - 1's partials
+    const int n_sl = cc_hi - cc_lo;
+    for (int i = 0; i < n_sl; ++i) {
+      cp_async_wait<0>();
+      __syncthreads();
+      if (i + 1 < n_sl) stage(i + 1, (i + 1) & 1);
+      cp_async_commit();
+      score(i, i & 1);
+    }
+    __syncthreads();
+    epilogue(n_sl - 1);
+  }
+  const size_t F = static_cast<size_t>(cap) * kLanes;
+#pragma unroll
+  for (int u = 0; u < kOwn; ++u) {
+    const int g = j + kT * u;
+    if (g >= kSlots || m0 + g >= a.M) continue;
+    const size_t o = (static_cast<size_t>(t) * a.M + m0 + g) * F;
+    for (int r = 0; r < cap; ++r) {
+      a.out_v[o + r * kLanes + lane] = f * best[u][r];
+      a.out_i[o + r * kLanes + lane] = static_cast<uint8_t>(bidx[u][r]);
+    }
+  }
+}
+
+template <typename Kern, typename... More>
+cudaError_t launch(Kern kernel, dim3 grid, dim3 block, size_t smem, cudaStream_t st, const Args& a,
+                   More... more) {
   if (smem > 48 * 1024) {
     const cudaError_t e =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
     if (e != cudaSuccess) return e;
   }
-  kernel<<<grid, block, smem, st>>>(a);
+  kernel<<<grid, block, smem, st>>>(a, more...);
   return cudaGetLastError();
+}
+
+// Slots per scan block and its shared memory: query rows, table (+ zero
+// entry), ring, partial sums. Two blocks per SM where at least 4 slots fit
+// half the shared memory (RaBitQ: 8 slots; PQ's int8 table: 4): the second
+// block's scan hides the first one's table build. Else the most slots
+// (8, 4, 2, 1) that fit, one block per SM (PQ's bf16 table: 4 slots). Never
+// wider than the tile needs; cap != 2 runs one slot per block. slots = 0 if
+// none fits.
+struct Plan {
+  int slots;
+  size_t smem;
+  bool two;  // two blocks per SM
+};
+
+inline Plan plan(int M, int dp, int S, int book, int nw, int cap, size_t esize) {
+  for (int two = 1; two >= 0; --two)
+    for (int G = kMaxGroups; G >= (two ? 4 : 1); G /= 2) {
+      if (cap != 2 && G != 1) continue;
+      if (G > 1 && G / 2 >= M) continue;
+      const size_t b = align16(static_cast<size_t>(G) * dp * 4) +
+                       align16((static_cast<size_t>(S) * book + 1) * G * esize) +
+                       2 * static_cast<size_t>(nw) * kLanes * 4 +
+                       2 * static_cast<size_t>(kT) * G * kLanes * 4;
+      // a block of an SM's two also leaves 1 KB of the SM's 228 KB to the system
+      if (b <= (two ? static_cast<size_t>(kSmemMax) / 2 - 1024 : static_cast<size_t>(kSmemMax)))
+        return {G, b, two == 1};
+    }
+  return {0, 0, false};
+}
+
+template <typename T, int kSlots>
+cudaError_t launch_scan(const Plan& p, int cap, int bits, dim3 grid, cudaStream_t st,
+                        const Args& a) {
+  const dim3 block(kT * kLanes);
+  if (cap != 2) return launch(pq_scan_kernel<T, kSlots, 0, 0, 1>, grid, block, p.smem, st, a);
+  // the main path's shapes: PQ 8-bit codes (4 slots; bf16 table: one block
+  // per SM, int8 table: two) and RaBitQ 3-bit codes (bf16, 8 slots, two)
+  constexpr bool kInt8 = std::is_same<T, int8_t>::value;
+  if constexpr (kSlots == 4)
+    if (bits == 8 && a.book == 256 && p.two == kInt8)
+      return launch(pq_scan_kernel<T, 4, 2, 8, kInt8 ? 2 : 1>, grid, block, p.smem, st, a);
+  if constexpr (kSlots == 8 && !kInt8)
+    if (bits == 3 && a.book == 8 && p.two)
+      return launch(pq_scan_kernel<T, 8, 2, 3, 2>, grid, block, p.smem, st, a);
+  return launch(pq_scan_kernel<T, kSlots, 2, 0, 1>, grid, block, p.smem, st, a);
+}
+
+template <typename T>
+cudaError_t launch_slots(const Plan& p, int cap, int bits, dim3 grid, cudaStream_t st,
+                         const Args& a) {
+  switch (p.slots) {
+    case 8: return launch_scan<T, 8>(p, cap, bits, grid, st, a);
+    case 4: return launch_scan<T, 4>(p, cap, bits, grid, st, a);
+    case 2: return launch_scan<T, 2>(p, cap, bits, grid, st, a);
+    default: return launch_scan<T, 1>(p, cap, bits, grid, st, a);
+  }
 }
 
 }  // namespace pq
@@ -309,23 +729,6 @@ static int words_per_row(int S, int bits) {
   return static_cast<int>((static_cast<long long>(S) * bits + 31) / 32);
 }
 
-// Slots per block for a table of S*book entries: as many as fit the shared
-// memory beside one slice of code words, at most 8, evened out over the
-// tile's M slots; 0 if one does not fit.
-static int pq_scan_slots(int M, int dp, int S, int book, int bits, int int8_mode) {
-  const size_t per_slot =
-      align16(static_cast<size_t>(S) * book * (int8_mode ? 1 : 2)) + static_cast<size_t>(dp) * 4;
-  // one slice of words, + 16 for the alignment of the query rows
-  const size_t fixed = align16(static_cast<size_t>(words_per_row(S, bits)) * kLanes * 4) + 16;
-  if (fixed >= static_cast<size_t>(kSmemMax)) return 0;
-  int G = static_cast<int>((kSmemMax - fixed) / per_slot);
-  G = G < kMaxGroups ? G : kMaxGroups;
-  G = G < M ? G : M;
-  if (G < 1) return 0;
-  const int nb = (M + G - 1) / G;
-  return (M + nb - 1) / nb;
-}
-
 extern "C" int cuvs_pq_scan(const void* codes, int Sw, int n_pad, const float* norms, int n_norms,
                             const float* fr, const void* q, const void* cb, const void* ctile,
                             const int* qidx, const int* al, const int* lo, const int* sizes,
@@ -335,24 +738,29 @@ extern "C" int cuvs_pq_scan(const void* codes, int Sw, int n_pad, const float* n
   if (cap < 1 || cap > kMaxCap || W % kLanes || W / kLanes > 256 || bits < 1 || bits > 32 ||
       book < 1 || S < 1 || pq_len < 1 || (rabitq && fr == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int G = pq_scan_slots(M, dp, S, book, bits, int8_mode);
   const int nw = words_per_row(S, bits);
-  if (G < 1 || nw > Sw) return static_cast<int>(cudaErrorInvalidValue);
+  const Plan p = plan(M, dp, S, book, nw, cap, int8_mode ? 1 : 2);
+  if (p.slots < 1 || nw > Sw) return static_cast<int>(cudaErrorInvalidValue);
+  const int vec = n_pad % 4 == 0 && reinterpret_cast<uintptr_t>(codes) % 16 == 0;
   Args a{static_cast<const uint32_t*>(codes), Sw, n_pad, norms, n_norms, fr,
          static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(cb),
          static_cast<const __nv_bfloat16*>(ctile), qidx, al, lo, sizes,
-         nw, M, dp, S, book, bits, pq_len, W, cap, rabitq, ip, use_pen, int8_mode,
+         nw, M, dp, S, book, bits, pq_len, W, cap, rabitq, ip, use_pen, int8_mode, vec,
+         (book & (book - 1)) == 0 ? __builtin_ctz(static_cast<unsigned>(book)) : -1,
          absmax, out_v, out_i};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid(n_tiles, (M + G - 1) / G), block(G * kLanes);
-  const size_t q_bytes = align16(static_cast<size_t>(G) * dp * sizeof(float));
   if (int8_mode) {
-    const cudaError_t e = launch(pq_lut_absmax_kernel, grid, block, q_bytes, st, a);
+    const int per_block = kAbsThreads * (book % 4 == 0 ? 4 : 1);
+    const int n_eb = (S * book + per_block - 1) / per_block;
+    const size_t row = static_cast<size_t>(dp) * sizeof(float);
+    const int chunk = static_cast<int>(std::max<size_t>(1, std::min<size_t>(M, kAbsQBytes / row)));
+    if (chunk * row > static_cast<size_t>(kSmemMax)) return static_cast<int>(cudaErrorInvalidValue);
+    const cudaError_t e = launch(pq_lut_absmax_kernel, dim3(n_tiles * n_eb), dim3(kAbsThreads),
+                                 chunk * row, st, a, n_eb, chunk);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  const size_t smem = q_bytes + align16(static_cast<size_t>(nw) * kLanes * 4) +
-                      G * align16(static_cast<size_t>(S) * book * (int8_mode ? 1 : 2));
-  const cudaError_t e = cap == 2 ? launch(pq_scan_kernel<2>, grid, block, smem, st, a)
-                                 : launch(pq_scan_kernel<0>, grid, block, smem, st, a);
+  const dim3 grid(n_tiles * ((M + p.slots - 1) / p.slots));
+  const cudaError_t e = int8_mode ? launch_slots<int8_t>(p, cap, bits, grid, st, a)
+                                  : launch_slots<__nv_bfloat16>(p, cap, bits, grid, st, a);
   return static_cast<int>(e);
 }

@@ -105,8 +105,7 @@ def cluster_major_scan_fused(sorted_data, sorted_norms, lists: ivf.SortedLists, 
     """
     from cuvs_tpu_torch.ops import ivf_scan as ops_ivf_scan
 
-    nq, d = queries_f32.shape
-    p = probe_ids.shape[1]
+    d = queries_f32.shape[1]
     n_lists = lists.offsets.shape[0]
     ip = metric == DistanceType.InnerProduct
     n_pad, dp = sorted_data.shape
@@ -141,6 +140,19 @@ def cluster_major_scan_fused(sorted_data, sorted_norms, lists: ivf.SortedLists, 
     out_v, out_i = ops_ivf_scan.fused_ivf_scan(
         sorted_data, sorted_norms, qc, qidx, al, lo, sizes, scale2, W=W_k, m_tile=m_tile,
         ip=ip_kernel, int8_mode=int8_mode, cap=cap)
+    return _flat_pool(out_v, out_i, pair_tile, pair_slot, al, lists, queries_f32, k, metric, ip,
+                      cap, recall_target, flt if post_mode else None, bitset_mode, overfetch)
+
+
+def _flat_pool(out_v, out_i, pair_tile, pair_slot, al, lists: ivf.SortedLists, queries_f32,
+               k: int, metric, ip: bool, cap: int, recall_target, post_filter, bitset_mode: bool,
+               overfetch: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Postlude of the flat fused scan: sentinel-pad the tile pool, cross-probe
+    top-k, recover global ids from (window start, 128-slice, lane), add |q|^2
+    (L2). ``post_filter`` (bitmap/udf) masks an ``overfetch``x deep pool
+    before the final cut."""
+    nq, p = pair_tile.shape
+    post_mode = post_filter is not None
     Fc = cap * 128
 
     # sentinel tile row for dropped pairs (cannot occur at the default bound)
@@ -167,7 +179,7 @@ def cluster_major_scan_fused(sorted_data, sorted_norms, lists: ivf.SortedLists, 
         tv = tv * 0.5  # scored -2 q.y through the L2 penalty path
     if post_mode:
         qid = torch.arange(nq, device=fi.device)
-        mask = filt.passes(flt, qid[:, None], fi)
+        mask = filt.passes(post_filter, qid[:, None], fi)
         tv = torch.where(ok & mask, tv, float("inf"))
         tv, srt = torch.sort(tv, dim=1, stable=True)
         fi = torch.gather(fi, 1, srt)

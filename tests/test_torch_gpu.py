@@ -256,6 +256,140 @@ def _assert_pq_pool(kv, ki, rv, ri, int8):
     assert (ki != ri).float().mean() < 0.01
 
 
+def _lane_periodic(n, period):
+    """Row ids r -> r % period: with period a multiple of 128, a row repeats
+    every period // 128 slices in the same lane bin, so bins see exact ties."""
+    return np.arange(n) % period
+
+
+# the tensor-core scan (bf16, int8 rows): a tile of 128 slots that are all
+# queries, one whose slots are all empty (zero query rows), a mixed one and
+# one whose list fills a 256-slice window; dp on and off the 128-byte chunk
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("dp", [96, 100, 128, 256])
+@pytest.mark.parametrize("ip", [False, True])
+def test_ivf_scan_mma_tiles_match_plain(cuda, dtype, dp, ip):
+    rng = np.random.default_rng(dp + 7 * ip)
+    M, nq, W = 128, 300, 256 * 128
+    n_pad = W + 1024
+    x = _data(rng, n_pad, dp, dtype, cuda)
+    q = _data(rng, nq, dp, dtype, cuda)
+    norms = torch.from_numpy(rng.uniform(50, 150, n_pad).astype(np.float32)).to(cuda)
+    qidx = np.stack([rng.permutation(nq)[:M], np.full(M, -1), rng.integers(-1, nq, M),
+                     rng.permutation(nq)[:M]]).astype(np.int32)
+    tiles = [torch.tensor(v, dtype=torch.int32, device=cuda)
+             for v in ([0, 512, 1024, 0], [3, 0, 100, 0], [1500, 900, 2000, W])]
+    int8 = dtype == torch.int8
+    args = (x, norms, q, torch.from_numpy(qidx).to(cuda), *tiles, 0.25 if int8 else 1.0)
+    kw = dict(W=W, m_tile=M, ip=ip, int8_mode=int8, cap=2)
+    kv, ki = ivf_scan.fused_ivf_scan(*args, **kw)
+    torch.cuda.synchronize()
+    rv, ri = ivf_scan.fused_ivf_scan_reference(*args, **kw)
+    _assert_pool(kv, ki, rv, ri, exact_ints=int8)
+
+
+# integer-valued rows repeating every 3 slices in each lane bin: every bin
+# sees exact ties, which the chain resolves as the plain version does
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("ip", [False, True])
+@pytest.mark.parametrize("cap", [1, 2, 3])
+def test_ivf_scan_ties_keep_the_reference_slice(cuda, dtype, ip, cap):
+    rng = np.random.default_rng(cap + 5 * ip)
+    M, nq, W, n_pad, d = 128, 200, 2048, 4096, 100
+    base = _int_valued(rng, 384, d, torch.float32, "cpu")
+    x = base[_lane_periodic(n_pad, 384)].to(dtype).to(cuda).contiguous()
+    q = _int_valued(rng, nq, d, dtype, cuda)
+    norms = (x.float() ** 2).sum(1)
+    qidx = torch.from_numpy(rng.integers(-1, nq, (3, M)).astype(np.int32)).to(cuda)
+    tiles = [torch.tensor(v, dtype=torch.int32, device=cuda)
+             for v in ([0, 128, 1024], [0, 50, 7], [2048, 1700, 900])]
+    args = (x, norms, q, qidx, *tiles, 1.0)
+    kw = dict(W=W, m_tile=M, ip=ip, int8_mode=dtype == torch.int8, cap=cap)
+    kv, ki = ivf_scan.fused_ivf_scan(*args, **kw)
+    torch.cuda.synchronize()
+    rv, ri = ivf_scan.fused_ivf_scan_reference(*args, **kw)
+    _assert_pool(kv, ki, rv, ri, exact_ints=True)
+
+
+def _tied_tables(case, rng, mode, use_pen=False):
+    """Small-integer codebooks, queries, centers and row factors (all sums
+    exact in any order) and codes repeating every 3 slices per lane bin:
+    bins see exact ties, and kernel and plain version must agree bit for bit."""
+    n = case["codes_t"].shape[1]
+    src = _lane_periodic(n, 384)
+    case["codes_t"] = np.ascontiguousarray(case["codes_t"][:, src])
+    if mode == "pq":
+        case["codebook"] = rng.integers(-2, 3, case["codebook"].shape).astype(np.float32)
+    for key in ("queries", "centers_tile"):
+        case[key] = rng.integers(-3, 4, case[key].shape).astype(np.float32)
+    if not use_pen:
+        case["norms"] = rng.integers(0, 16, n).astype(np.float32)[src]
+    case["fr"] = rng.integers(-2, 3, n).astype(np.float32)[src]
+    return case
+
+
+# full 128-slot tiles, each main-path variant, with and without tied tables;
+# tile 1 has only empty slots (each scores a zero query row) and tile 2 no rows
+_PQ_FULL = dict(al=[0, 256, 1024, 2048], lo=[0, 5, 0, 70], sizes=[1024, 900, 0, 1800], M=128,
+                W=2048, n_pad=4096, nq=300)
+
+
+@pytest.mark.parametrize("mode,int8,bits,S,book", [("pq", False, 8, 64, 256),
+                                                  ("pq", True, 8, 64, 256),
+                                                  ("rabitq", False, 3, 128, 8)])
+@pytest.mark.parametrize("ip", [False, True])
+@pytest.mark.parametrize("tied", [False, True])
+def test_pq_scan_full_tiles_match_plain(cuda, mode, int8, bits, S, book, ip, tied):
+    rng = np.random.default_rng(bits + 3 * ip + 11 * tied)
+    pq_len = 128 // S
+    case = pq_scan_case(bits + 5 * int8, mode, bits, S, book, pq_len, **_PQ_FULL)
+    case["qidx"][1] = -1
+    if tied:
+        case = _tied_tables(case, rng, mode)
+    args, kw = _pq_scan_args(case, mode, bits, book, pq_len, ip, False, int8, 2, _PQ_FULL["W"],
+                             cuda)
+    kv, ki = ivf_scan.fused_pq_scan(*args, **kw)
+    torch.cuda.synchronize()
+    rv, ri = ivf_scan.fused_pq_scan_reference(*args, **kw)
+    if tied:
+        _assert_pool(kv, ki, rv, ri, exact_ints=True)
+    else:
+        _assert_pq_pool(kv, ki, rv, ri, int8)
+
+
+# every code width 1-9, a full book and a book one short of 2**bits (code
+# 2**bits - 1 selects nothing), S on and off a whole number of 32-code
+# periods; cap 2 (the register path) and 3 (the generic depth)
+@pytest.mark.parametrize("bits", range(1, 10))
+@pytest.mark.parametrize("short_book", [False, True])
+@pytest.mark.parametrize("S", [128, 100])
+@pytest.mark.parametrize("cap", [2, 3])
+def test_pq_scan_rabitq_every_width(cuda, bits, short_book, S, cap):
+    book = (1 << bits) - short_book
+    case = pq_scan_case(bits + 20 * short_book + S, "rabitq", bits, S, 1 << bits, 1, **_PQ_GEOM)
+    case["codebook"] = np.ascontiguousarray(case["codebook"][:, :book])
+    args, kw = _pq_scan_args(case, "rabitq", bits, book, 1, False, False, False, cap,
+                             _PQ_GEOM["W"], cuda)
+    kv, ki = ivf_scan.fused_pq_scan(*args, **kw)
+    torch.cuda.synchronize()
+    rv, ri = ivf_scan.fused_pq_scan_reference(*args, **kw)
+    _assert_pq_pool(kv, ki, rv, ri, False)
+
+
+# 8-bit PQ codes whose count is not a multiple of the 4 threads' word shares
+# (S = 60: 15 words), with tied tables, bf16 and int8
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("cap", [1, 2, 4])
+def test_pq_scan_uneven_code_shares_with_ties(cuda, int8, cap):
+    rng = np.random.default_rng(cap + 2 * int8)
+    case = _tied_tables(pq_scan_case(cap, "pq", 8, 60, 256, 2, **_PQ_FULL), rng, "pq")
+    args, kw = _pq_scan_args(case, "pq", 8, 256, 2, False, False, int8, cap, _PQ_FULL["W"], cuda)
+    kv, ki = ivf_scan.fused_pq_scan(*args, **kw)
+    torch.cuda.synchronize()
+    rv, ri = ivf_scan.fused_pq_scan_reference(*args, **kw)
+    _assert_pool(kv, ki, rv, ri, exact_ints=True)
+
+
 def test_launch_counters_count_kernel_launches(cuda):
     before = dict(bf_topk.LAUNCHES)
     q = _data(np.random.default_rng(1), 8, 32, torch.float32, cuda)
