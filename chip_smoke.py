@@ -23,7 +23,36 @@ same shape): 1,000,000 x 128 f32, 4096 queries, k = 10.
      and + refine from 40 candidates, int8 table + refine;
   7. IVF-RaBitQ (1024 lists, 3 bits per dimension: ivf_rabitq.yaml ``base``;
      128 x 3 bits = 12 words, so codes straddle words) with 50 probes
-     through the same kernel, alone and + refine.
+     through the same kernel, alone and + refine;
+  8. the phase-5 index through the unfused cluster-major scan (its recall
+     may be at most 0.005 below phase 5's: its per-list selection is exact),
+     then with a metric UDF (squared L2 by broadcasting, [.., d] blocks)
+     under ``auto``: the same recall within 0.005, and at most 4 GiB of
+     device memory above what the indexes hold (unchunked by d, one block
+     of tiles would be about 34 GB);
+  9. IVF-Flat cosine (1984 lists), ``auto`` (which routes cosine to the
+     cluster-major scan), 64 probes, against a cosine ground truth (recall
+     at least 0.86);
+ 10. IVF-Flat built on the first 900,000 rows, then ``extend`` by the last
+     100,000, fused scan (n_rows 1M; recall at most 0.01 below phase 5's);
+ 11. ``ivf_flat.build_streaming`` in host mode from 10 numpy slices of
+     100,000 rows: an int8 index (the ivf_scan kernel's int8 variant), alone
+     and + refine;
+ 12. IVF-PQ with per-cluster codebooks (1024 lists, pq_dim 64, 8 bits)
+     through the unfused cluster-major scan, alone and + refine (each at
+     most 0.01 below phase 6's);
+ 13. IVF-PQ built on 900,000 rows + ``extend`` by 100,000, fused bf16 table,
+     alone and + refine;
+ 14. ``ivf_pq.build_streaming`` from 10 host slices, fused, alone and +
+     refine; its serving layout must equal ``pack_codes_transposed`` of its
+     unpacked codes;
+ 15. ``refine_host`` from the host numpy base on phase 14's candidates: equal
+     to ``refine.refine`` on the card (ids except at ties, distances rtol
+     1e-5);
+ 16. IVF-SQ (1024 lists: ivf_sq.yaml ``base``), 50 probes, alone and + refine
+     (at most 0.01 below phase 6 + refine: the same lists and probes);
+ 17. ``serialize.save`` then ``load`` of the phase-6 IVF-PQ and phase-11
+     IVF-Flat indexes in a temporary directory: searches bit-identical.
 
 Launch counters are zeroed just before that run and read just after; every
 kernel of the path must have launched. Then each kernel is held against its
@@ -56,12 +85,14 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 N, NQ, K, CAND = 1_000_000, 4096, 10, 40
 N_LISTS, N_PROBES = 1984, 64  # bench.py's n_lists rule at 1M rows
-Q_LISTS, Q_PROBES = 1024, 50  # IVF-PQ and IVF-RaBitQ (bench/configs/*.yaml base)
+Q_LISTS, Q_PROBES = 1024, 50  # IVF-PQ, IVF-RaBitQ, IVF-SQ (bench/configs/*.yaml base)
+N_FIRST, SLICE = 900_000, 100_000  # extend phases: build on the first rows; streaming slices
 FLOAT_RTOL, FLOAT_ATOL, ID_MISMATCH = 1e-4, 1e-3, 1e-3
 RECALL_SLACK = 0.005
 
@@ -174,6 +205,21 @@ def compare_pools(kernel_out, plain_out, kind):
     return (float(err.max()) if err.numel() else 0.0), identical
 
 
+def check_same_ranking(d_a, i_a, d_b, i_b, what, rtol=1e-5):
+    """Distances within rtol; ids equal wherever the distance at that rank
+    does not tie (within rtol) a neighbouring rank's."""
+    import torch
+
+    d_a, d_b = d_a.double().cpu(), d_b.double().cpu()
+    check(torch.allclose(d_a, d_b, rtol=rtol, atol=0), f"{what}: distances differ")
+    close = (d_b[:, 1:] - d_b[:, :-1]).abs() <= rtol * d_b[:, 1:].abs()
+    tied = torch.zeros_like(d_b, dtype=torch.bool)
+    tied[:, 1:] |= close
+    tied[:, :-1] |= close
+    tied[:, -1] = True  # the last rank may tie a candidate that did not make the cut
+    check(bool(((i_a.cpu() == i_b.cpu()) | tied).all()), f"{what}: ids differ at untied ranks")
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "cuvs_tpu_torch")):
         print("chip_smoke.py: run it from a checkout of the repository "
@@ -188,8 +234,11 @@ def main() -> int:
     from cuvs_tpu_torch.bench import datasets, roofline
     from cuvs_tpu_torch.bench.gt import exact_ground_truth, id_recall
     from cuvs_tpu_torch.bench.measure import timed_qps
-    from cuvs_tpu_torch.neighbors import brute_force, ivf_flat, ivf_pq, ivf_rabitq, refine
+    from cuvs_tpu_torch.core import bitpack
+    from cuvs_tpu_torch.neighbors import brute_force, ivf_flat, ivf_pq, ivf_rabitq, ivf_sq, refine
+    from cuvs_tpu_torch.neighbors import ivf_scan as nb_ivf_scan
     from cuvs_tpu_torch.ops import _lib, bf_topk, ivf_scan
+    from cuvs_tpu_torch.utils import serialize
 
     t_start = time.time()
     dev = torch.device("cuda", 0)
@@ -221,15 +270,16 @@ def main() -> int:
         print(f"# ground truth: fused exact kernel, cross-check on 256 queries passed "
               f"({time.time() - t0:.1f} s)")
 
-        def phase(label, fn):
+        def phase(label, fn, gt=None):
+            gt = gti if gt is None else gt
             d, i = fn(q)
             torch.cuda.synchronize()
             check(d.shape == (q.shape[0], K) and i.shape == (q.shape[0], K), f"{label}: shape")
             check(bool(torch.isfinite(d).all()), f"{label}: non-finite distances")
-            rec = id_recall(i.cpu(), gti)
+            rec = id_recall(i.cpu(), gt)
             qps = timed_qps(fn, q, reps=5, min_time_s=1.0, max_reps=32)
             print(f"# {label}: recall@10={rec:.4f} qps={qps:.0f}")
-            results[label] = dict(fn=fn, recall=rec, qps=qps)
+            results[label] = dict(fn=fn, recall=rec, qps=qps, gt=gt)
 
         # 2. exact fused brute force, f32 (the default fused search)
         phase("bf_fused_exact_f32", lambda qq: brute_force.search(bf, qq, K, fused=True))
@@ -285,8 +335,129 @@ def main() -> int:
         phase(f"ivf_rabitq_b3_p{Q_PROBES}", lambda qq: ivf_rabitq.search(rq, qq, K, rq_sp))
         phase(f"ivf_rabitq_b3_p{Q_PROBES}_refine", lambda qq: refine.refine(
             x, qq, ivf_rabitq.search(rq, qq, CAND, rq_sp)[1], K, metric=ds.metric))
+
+        def with_refine(label, search):
+            phase(label, lambda qq: search(qq, K))
+            phase(f"{label}_refine", lambda qq: refine.refine(x, qq, search(qq, CAND)[1], K,
+                                                              metric=ds.metric))
+
+        # 8. the phase-5 index through the unfused cluster-major scan
+        cm_sp = ivf_flat.SearchParams(n_probes=N_PROBES, scan_algo="cluster_major",
+                                      compute_dtype=torch.bfloat16)
+        phase(f"ivf_cluster_major_p{N_PROBES}", lambda qq: ivf_flat.search(idx, qq, K, cm_sp))
+        check(results[f"ivf_cluster_major_p{N_PROBES}"]["recall"]
+              >= results[f"ivf_fused_p{N_PROBES}"]["recall"] - RECALL_SLACK,
+              "cluster-major recall below the fused scan's")
+        # ... and with a broadcasting metric UDF: its chunks bound the [.., d] blocks
+        udf_sp = ivf_flat.SearchParams(n_probes=N_PROBES, metric_udf=lambda a, b: (
+            (a[:, None, :] - b[None, :, :]) ** 2).sum(-1))
+        torch.cuda.synchronize()
+        peak_before = torch.cuda.max_memory_allocated(dev)
+        held = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        phase(f"ivf_udf_auto_p{N_PROBES}", lambda qq: ivf_flat.search(idx, qq, K, udf_sp))
+        udf_mem = (torch.cuda.max_memory_allocated(dev) - held) / 2**30
+        print(f"# ivf_udf_auto_p{N_PROBES}: {udf_mem:.2f} GiB above the {held / 2**30:.2f} GiB "
+              "held")
+        check(udf_mem <= 4.0, "metric UDF search took more than 4 GiB of device memory")
+        check(results[f"ivf_udf_auto_p{N_PROBES}"]["recall"]
+              >= results[f"ivf_cluster_major_p{N_PROBES}"]["recall"] - RECALL_SLACK,
+              "metric UDF recall below the cluster-major scan's")
+        # 9. IVF-Flat cosine: auto routes cosine to the cluster-major scan
+        t0 = time.time()
+        gti_cos = brute_force.search(brute_force.build(x, metric="cosine"), q, K)[1].cpu().numpy()
+        print(f"# cosine ground truth: unfused brute force ({time.time() - t0:.1f} s)")
+        ivc = build_ivf("ivf_flat_cosine", lambda: ivf_flat.build(
+            x, n_lists=N_LISTS, metric="cosine", seed=0))
+        phase(f"ivf_cosine_auto_p{N_PROBES}",
+              lambda qq: ivf_flat.search(ivc, qq, K, n_probes=N_PROBES), gt=gti_cos)
+        check(results[f"ivf_cosine_auto_p{N_PROBES}"]["recall"] >= 0.86,
+              "cosine recall below 0.86")
+        # 10. build on the first 900k rows, extend by the last 100k
+        ive = build_ivf("ivf_flat_extend", lambda: ivf_flat.extend(ivf_flat.build(
+            x[:N_FIRST], n_lists=N_LISTS, metric=ds.metric, seed=0,
+            storage_dtype=torch.bfloat16), x[N_FIRST:]))
+        check(ive.n_rows == n, "extended IVF-Flat: n_rows")
+        phase(f"ivf_extend_fused_p{N_PROBES}", lambda qq: ivf_flat.search(ive, qq, K, sp))
+        check(results[f"ivf_extend_fused_p{N_PROBES}"]["recall"]
+              >= results[f"ivf_fused_p{N_PROBES}"]["recall"] - 0.01,
+              "extended IVF-Flat recall more than 0.01 below the built one's")
+        # 11. streaming int8 build from host slices (the int8 ivf_scan variant)
+        base = ds.base
+        slices = lambda i: base[i * SLICE:(i + 1) * SLICE]  # noqa: E731
+        ivs = build_ivf("ivf_flat_streaming", lambda: ivf_flat.build_streaming(
+            slices, n // SLICE, n_lists=N_LISTS, metric=ds.metric, seed=0))
+        check(ivs.sorted_data.dtype == torch.int8, "streamed IVF-Flat is not int8")
+        fused8 = ivf_flat.SearchParams(n_probes=N_PROBES, scan_algo="fused")
+        with_refine(f"ivf_stream_int8_p{N_PROBES}",
+                    lambda qq, kk: ivf_flat.search(ivs, qq, kk, fused8))
+        # 12. IVF-PQ, per-cluster codebooks, unfused cluster-major scan
+        pqc = build_ivf("ivf_pq_per_cluster", lambda: ivf_pq.build(
+            x, n_lists=Q_LISTS, pq_dim=64, pq_bits=8, metric=ds.metric, seed=0,
+            codebook_gen="per_cluster"))
+        pq_cm = ivf_pq.SearchParams(n_probes=Q_PROBES, scan_algo="cluster_major")
+        with_refine(f"ivf_pq_per_cluster_cm_p{Q_PROBES}",
+                    lambda qq, kk: ivf_pq.search(pqc, qq, kk, pq_cm))
+        for suffix in ("", "_refine"):
+            check(results[f"ivf_pq_per_cluster_cm_p{Q_PROBES}{suffix}"]["recall"]
+                  >= results[f"ivf_pq_fused_p{Q_PROBES}{suffix}"]["recall"] - 0.01,
+                  f"per-cluster IVF-PQ{suffix} recall more than 0.01 below phase 6's")
+        # 13. IVF-PQ built on 900k rows, extended by 100k
+        pqe = build_ivf("ivf_pq_extend", lambda: ivf_pq.extend(ivf_pq.build(
+            x[:N_FIRST], n_lists=Q_LISTS, pq_dim=64, pq_bits=8, metric=ds.metric, seed=0),
+            x[N_FIRST:]))
+        check(pqe.n_rows == n, "extended IVF-PQ: n_rows")
+        with_refine(f"ivf_pq_extend_fused_p{Q_PROBES}",
+                    lambda qq, kk: ivf_pq.search(pqe, qq, kk, pq_sp[torch.bfloat16]))
+        # 14. IVF-PQ streaming build from host slices
+        pqs = build_ivf("ivf_pq_streaming", lambda: ivf_pq.build_streaming(
+            slices, n // SLICE, n_lists=Q_LISTS, pq_dim=64, pq_bits=8, metric=ds.metric,
+            seed=0))
+        codes = bitpack.unpack(pqs.sorted_codes[:pqs.n_rows], pqs.pq_bits, pqs.pq_dim)
+        check(torch.equal(pqs.sorted_codes_t,
+                          nb_ivf_scan.pack_codes_transposed(codes, pqs.window)),
+              "streamed IVF-PQ serving layout differs from pack_codes_transposed")
+        del codes
+        with_refine(f"ivf_pq_stream_fused_p{Q_PROBES}",
+                    lambda qq, kk: ivf_pq.search(pqs, qq, kk, pq_sp[torch.bfloat16]))
+        # 15. refine_host from the host base on phase 14's candidates
+        cand = ivf_pq.search(pqs, q, CAND, pq_sp[torch.bfloat16])[1]
+        hd, hi = refine.refine_host(base, q, cand, K, metric=ds.metric)
+        rd, ri = refine.refine(x, q, cand, K, metric=ds.metric)
+        check_same_ranking(hd, hi, rd, ri, "refine_host against refine")
+        print("# refine_host on the streamed IVF-PQ's candidates equals refine on the card")
+        phase(f"ivf_pq_stream_fused_p{Q_PROBES}_refine_host", lambda qq: refine.refine_host(
+            base, qq, ivf_pq.search(pqs, qq, CAND, pq_sp[torch.bfloat16])[1], K,
+            metric=ds.metric))
+        # 16. IVF-SQ
+        sq = build_ivf("ivf_sq", lambda: ivf_sq.build(x, n_lists=Q_LISTS, metric=ds.metric,
+                                                      seed=0))
+        sq_sp = ivf_sq.SearchParams(n_probes=Q_PROBES)
+        with_refine(f"ivf_sq_p{Q_PROBES}", lambda qq, kk: ivf_sq.search(sq, qq, kk, sq_sp))
+        check(results[f"ivf_sq_p{Q_PROBES}_refine"]["recall"]
+              >= results[f"ivf_pq_fused_p{Q_PROBES}_refine"]["recall"] - 0.01,
+              "IVF-SQ + refine recall more than 0.01 below IVF-PQ + refine's")
+        # 17. save and load the phase-6 IVF-PQ and phase-11 IVF-Flat indexes
+        with tempfile.TemporaryDirectory() as tmp:
+            for label, index, search in (
+                    (f"ivf_pq_loaded_fused_p{Q_PROBES}", pq,
+                     lambda ix, qq: ivf_pq.search(ix, qq, K, pq_sp[torch.bfloat16])),
+                    (f"ivf_stream_int8_loaded_p{N_PROBES}", ivs,
+                     lambda ix, qq: ivf_flat.search(ix, qq, K, fused8))):
+                t0 = time.time()
+                path = os.path.join(tmp, "index.npz")
+                serialize.save(path, index)
+                loaded = serialize.load(path)
+                torch.cuda.synchronize()
+                print(f"# {label}: save + load {os.path.getsize(path) / 2**20:.0f} MiB "
+                      f"({time.time() - t0:.1f} s)")
+                (a, b), (c, e) = search(index, q), search(loaded, q)
+                check(torch.equal(a, c) and torch.equal(b, e),
+                      f"{label}: search differs after save and load")
+                phase(label, lambda qq, _ix=loaded, _s=search: _s(_ix, qq))
     torch.cuda.synchronize()
-    print(f"# peak device memory: {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    peak = max(peak_before, torch.cuda.max_memory_allocated(dev))
+    print(f"# peak device memory: {peak / 2**30:.2f} GiB")
     launches = {**bf_topk.LAUNCHES, **ivf_scan.LAUNCHES}
     print("# launches during the main path: " + json.dumps(launches))
     for name, *_ in kernels():
@@ -297,7 +468,7 @@ def main() -> int:
         for label, r in results.items():
             t0 = time.time()
             d, i = r["fn"](q)
-            plain_rec = id_recall(i.cpu(), gti)
+            plain_rec = id_recall(i.cpu(), r["gt"])
             print(f"# {label}: plain-version recall@10={plain_rec:.4f} ({time.time() - t0:.1f} s)")
             check(r["recall"] >= plain_rec - RECALL_SLACK,
                   f"{label}: kernel recall {r['recall']:.4f} < plain {plain_rec:.4f} - "

@@ -5,7 +5,8 @@ Each function takes exactly the arrays of a ``cuvs_tpu`` index (after
 card, which must exist; pass ``device="cpu"`` for the host), with the same
 layout. A test can then build once in JAX and search in both packages, which
 separates search faults from the k-means build's RNG differences. bfloat16
-arrays (numpy's ``ml_dtypes`` bfloat16) are carried bit for bit.
+arrays (numpy's ``ml_dtypes`` bfloat16, or the 2-byte void records that
+numpy loads from a file without ``ml_dtypes``) are carried bit for bit.
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ import numpy as np
 import torch
 
 from cuvs_tpu_torch.distance.pairwise import normalize_metric
-from cuvs_tpu_torch.neighbors import brute_force, ivf_common, ivf_flat, ivf_pq, ivf_rabitq
+from cuvs_tpu_torch.neighbors import brute_force, ivf_common, ivf_flat, ivf_pq, ivf_rabitq, ivf_sq
 from cuvs_tpu_torch.utils.device import resolve_device
 
 
@@ -23,7 +24,8 @@ def _tensor(a, device, dtype=None):
         return None
     device = resolve_device(device)
     a = np.array(a)  # a writable copy: JAX hands out read-only buffers
-    if a.dtype.name == "bfloat16":
+    if a.dtype.name == "bfloat16" or (a.dtype.kind == "V" and a.dtype.itemsize == 2):
+        # ml_dtypes bfloat16, or the raw 2-byte records numpy loads it as
         t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
     else:
         t = torch.from_numpy(a)
@@ -46,17 +48,17 @@ def _lists(offsets, sizes, ids, labels, device) -> ivf_common.SortedLists:
                                   ids=_tensor(ids, device, torch.int32))
 
 
-def brute_force_index_from_numpy(dataset, norms, q_scale, metric, device=None
-                                 ) -> brute_force.Index:
+def brute_force_index_from_numpy(dataset, norms, q_scale, metric, device=None,
+                                 metric_arg: float = 2.0) -> brute_force.Index:
     """The port's brute-force index over a reference index's arrays."""
     return brute_force.Index(dataset=_tensor(dataset, device), norms=_tensor(norms, device),
                              q_scale=_tensor(q_scale, device, torch.float32),
-                             metric=normalize_metric(metric))
+                             metric=normalize_metric(metric), metric_arg=float(metric_arg))
 
 
 def ivf_flat_index_from_numpy(centers, center_norms, sorted_data, sorted_norms, offsets, sizes,
-                              ids, labels, q_scale, metric, window, n_rows, device=None
-                              ) -> ivf_flat.Index:
+                              ids, labels, q_scale, metric, window, n_rows, device=None,
+                              adaptive_centers: bool = False) -> ivf_flat.Index:
     """The port's IVF-Flat index over a reference index's arrays (the list
     arrays are ``index.lists.offsets/sizes/ids/labels``)."""
     return ivf_flat.Index(centers=_tensor(centers, device), center_norms=_tensor(center_norms, device),
@@ -64,17 +66,22 @@ def ivf_flat_index_from_numpy(centers, center_norms, sorted_data, sorted_norms, 
                           sorted_norms=_tensor(sorted_norms, device),
                           lists=_lists(offsets, sizes, ids, labels, device),
                           q_scale=_tensor(q_scale, device, torch.float32),
-                          metric=normalize_metric(metric), window=int(window), n_rows=int(n_rows))
+                          metric=normalize_metric(metric), window=int(window), n_rows=int(n_rows),
+                          adaptive_centers=bool(adaptive_centers))
 
 
 def ivf_pq_index_from_numpy(centers, center_norms, centers_rot, rotation, pq_centers,
                             sorted_codes, offsets, sizes, ids, labels, metric, window, n_rows,
-                            pq_bits, sorted_codes_t=None, sorted_code_norms=None, device=None
-                            ) -> ivf_pq.Index:
-    """The port's IVF-PQ index (PER_SUBSPACE codebooks) over a reference
-    index's arrays. The reference's serving layout is taken as it is: its word
-    rows padded to a multiple of 8 and its norms padded for a 1024-row DMA
-    window are read by index and the pads ignored."""
+                            pq_bits, sorted_codes_t=None, sorted_code_norms=None, device=None,
+                            codebook_gen: str = "per_subspace", pq_dim: int = 0) -> ivf_pq.Index:
+    """The port's IVF-PQ index over a reference index's arrays. A
+    PER_CLUSTER index (``pq_centers`` [n_lists, book, pq_len]) names its
+    ``pq_dim``; a PER_SUBSPACE one takes it from ``pq_centers``. The
+    reference's serving layout is taken as it is: its word rows padded to a
+    multiple of 8 and its norms padded for a 1024-row DMA window are read by
+    index and the pads ignored."""
+    if codebook_gen == "per_cluster" and not pq_dim:
+        raise ValueError("a per_cluster index needs its pq_dim")
     return ivf_pq.Index(centers=_tensor(centers, device),
                         center_norms=_tensor(center_norms, device),
                         centers_rot=_tensor(centers_rot, device),
@@ -82,8 +89,8 @@ def ivf_pq_index_from_numpy(centers, center_norms, centers_rot, rotation, pq_cen
                         sorted_codes=_words(sorted_codes, device),
                         lists=_lists(offsets, sizes, ids, labels, device),
                         metric=normalize_metric(metric), window=int(window), n_rows=int(n_rows),
-                        pq_bits=int(pq_bits), codebook_gen="per_subspace",
-                        pq_dim_static=int(np.shape(pq_centers)[0]),
+                        pq_bits=int(pq_bits), codebook_gen=codebook_gen,
+                        pq_dim_static=int(pq_dim or np.shape(pq_centers)[0]),
                         sorted_codes_t=_words(sorted_codes_t, device),
                         sorted_code_norms=_tensor(sorted_code_norms, device))
 
@@ -105,3 +112,17 @@ def ivf_rabitq_index_from_numpy(centers, center_norms, rotation, centers_rot, so
                             metric=normalize_metric(metric), window=int(window),
                             n_rows=int(n_rows), bits_per_dim=int(bits_per_dim),
                             sorted_codes_t=_words(sorted_codes_t, device))
+
+
+def ivf_sq_index_from_numpy(centers, center_norms, sorted_codes, sorted_norms, q_min, q_max,
+                            offsets, sizes, ids, labels, metric, window, n_rows, device=None
+                            ) -> ivf_sq.Index:
+    """The port's IVF-SQ index over a reference index's arrays."""
+    return ivf_sq.Index(centers=_tensor(centers, device),
+                        center_norms=_tensor(center_norms, device),
+                        sorted_codes=_tensor(sorted_codes, device),
+                        sorted_norms=_tensor(sorted_norms, device),
+                        q_min=_tensor(q_min, device, torch.float32),
+                        q_max=_tensor(q_max, device, torch.float32),
+                        lists=_lists(offsets, sizes, ids, labels, device),
+                        metric=normalize_metric(metric), window=int(window), n_rows=int(n_rows))

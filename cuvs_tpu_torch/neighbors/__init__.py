@@ -1,1 +1,1 @@
-"""Nearest-neighbor search: brute force, IVF-Flat, refine, filters."""
+"""Nearest-neighbor search: brute force, IVF-Flat/PQ/SQ/RaBitQ, refine, filters."""

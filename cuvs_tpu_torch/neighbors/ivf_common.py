@@ -8,13 +8,18 @@ is not c.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import torch
 
 from cuvs_tpu_torch.distance import pairwise
 from cuvs_tpu_torch.distance.pairwise import DistanceType
-from cuvs_tpu_torch.selection.select_k import select_k
+from cuvs_tpu_torch.neighbors import filters as filt
+from cuvs_tpu_torch.selection.select_k import select_k, topk
+
+# elements of a metric UDF's broadcast [queries, lists, d] block in the coarse
+# search (256 MB of f32)
+_UDF_BLOCK = 1 << 26
 
 
 class SortedLists(NamedTuple):
@@ -50,7 +55,11 @@ def coarse_search(queries_f32: torch.Tensor, centers: torch.Tensor, center_norms
     """Top-n_probes closest lists per query -> [nq, n_probes] int32
     (GEMM + select_k, ivf_flat_search.cuh:148-187)."""
     if callable(metric) and not isinstance(metric, DistanceType):
-        score = metric(queries_f32, centers).float()
+        # in query chunks: a broadcast UDF builds [chunk, n_lists, d]
+        nq, d = queries_f32.shape
+        step = max(1, _UDF_BLOCK // max(1, centers.shape[0] * d))
+        score = torch.cat([metric(queries_f32[s:s + step], centers).float()
+                           for s in range(0, nq, step)])
         return select_k(score, n_probes, select_min=True)[1]
     dots = pairwise._gemm(queries_f32, centers, compute_dtype)
     if metric == DistanceType.InnerProduct:
@@ -68,6 +77,31 @@ def window_gather(sorted_arr: torch.Tensor, starts: torch.Tensor, window: int) -
     starts = torch.clamp(starts.to(torch.int64), 0, sorted_arr.shape[0] - window)
     idx = starts[:, None] + torch.arange(window, device=sorted_arr.device)[None, :]
     return sorted_arr[idx]
+
+
+def query_major_topk(lists: SortedLists, probes: torch.Tensor, window: int, k: int, prefilter,
+                     qid: torch.Tensor, score: Callable, recall_target=None):
+    """The query-major probe loop shared by the IVF scans: per probe column,
+    ``score(cluster [nq], starts [nq]) -> order [nq, window]`` (min = close)
+    over each query's window; rows outside the probed list or dropped by the
+    prefilter (queries ``qid``) go to +inf; each probe's top-k merges into a
+    running top-k. Returns (order values [nq, k], global ids [nq, k] int32)."""
+    nq = probes.shape[0]
+    best_v = torch.full((nq, k), float("inf"), device=probes.device)
+    best_i = torch.zeros((nq, k), dtype=torch.int32, device=probes.device)
+    for j in range(probes.shape[1]):
+        cluster = probes[:, j].long()
+        starts = lists.offsets[cluster]
+        ids_w = window_gather(lists.ids, starts, window)
+        valid = window_gather(lists.labels, starts, window) == cluster[:, None]
+        mask = filt.passes(prefilter, qid[:, None], ids_w)
+        if mask is not None:
+            valid = valid & mask
+        order = torch.where(valid, score(cluster, starts), float("inf"))
+        tv, tl = topk(order, min(k, window), True, recall_target)
+        best_v, sidx = topk(torch.cat([best_v, tv], 1), k, True)
+        best_i = torch.gather(torch.cat([best_i, torch.gather(ids_w, 1, tl)], 1), 1, sidx)
+    return best_v, best_i
 
 
 def postprocess_distances(dists: torch.Tensor, metric) -> torch.Tensor:

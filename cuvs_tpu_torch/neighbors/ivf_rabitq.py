@@ -33,7 +33,6 @@ from cuvs_tpu_torch.distance.pairwise import DistanceType, normalize_metric
 from cuvs_tpu_torch.neighbors import filters as filt
 from cuvs_tpu_torch.neighbors import ivf_common as ivf
 from cuvs_tpu_torch.neighbors.ivf_pq import _make_rotation
-from cuvs_tpu_torch.selection.select_k import topk
 from cuvs_tpu_torch.utils.device import as_tensor as _on_device
 from cuvs_tpu_torch.utils.tracing import traced
 
@@ -224,16 +223,9 @@ def _search_impl(index: Index, queries, prefilter, k: int, n_probes: int, metric
     kb = -((1 << bits) - 1) / 2.0
     kb_sumq = kb * qrot.sum(1)  # [nq] (ivf_gpu.cu:1000-1021)
     qc = qrot.to(compute_dtype).float()
-    qid = torch.arange(nq, device=qf.device)
 
-    best_v = torch.full((nq, k), float("inf"), device=qf.device)
-    best_i = torch.zeros((nq, k), dtype=torch.int32, device=qf.device)
-    for j in range(n_probes):
-        cluster = probe_ids[:, j].long()
-        starts = lists.offsets[cluster]
+    def score(cluster, starts):
         words_w = ivf.window_gather(index.sorted_codes, starts, window)  # [nq, W, words]
-        ids_w = ivf.window_gather(lists.ids, starts, window)
-        lab_w = ivf.window_gather(lists.labels, starts, window)
         fadd_w = ivf.window_gather(index.sorted_fadd, starts, window)
         fres_w = ivf.window_gather(index.sorted_frescale, starts, window)
         # levels in the compute type, as the reference's product sees them
@@ -242,20 +234,14 @@ def _search_impl(index: Index, queries, prefilter, k: int, n_probes: int, metric
         qdotc = (qf * index.centers[cluster]).sum(1)
         if ip:
             # <q, x> = <q, c> + a <q_rot, xu>, a = |r|^2/<r, xu> = -f_rescale/2
-            order = -(qdotc[:, None] + (-0.5 * fres_w) * xu_dot)
-        else:
-            cc = index.centers[cluster]
-            g_add = qn + (cc * cc).sum(1) - 2.0 * qdotc
-            order = torch.clamp_min(fadd_w + g_add[:, None] + fres_w * xu_dot, 0.0)
-        valid = lab_w == cluster[:, None]
-        mask = filt.passes(prefilter, qid[:, None], ids_w)
-        if mask is not None:
-            valid = valid & mask
-        order = torch.where(valid, order, float("inf"))
-        tv, tl = topk(order, min(k, window), True, recall_target)
-        ti = torch.gather(ids_w, 1, tl)
-        best_v, sidx = topk(torch.cat([best_v, tv], 1), k, True)
-        best_i = torch.gather(torch.cat([best_i, ti], 1), 1, sidx)
+            return -(qdotc[:, None] + (-0.5 * fres_w) * xu_dot)
+        cc = index.centers[cluster]
+        g_add = qn + (cc * cc).sum(1) - 2.0 * qdotc
+        return torch.clamp_min(fadd_w + g_add[:, None] + fres_w * xu_dot, 0.0)
+
+    best_v, best_i = ivf.query_major_topk(lists, probe_ids, window, k, prefilter,
+                                          torch.arange(nq, device=qf.device), score,
+                                          recall_target)
     if ip:
         best_v = -best_v
     return ivf.postprocess_distances(best_v, metric), best_i

@@ -1,10 +1,15 @@
-"""Cluster-major IVF scan — port of the fused paths of ``cuvs_tpu.neighbors.ivf_scan``.
+"""Cluster-major IVF scan — port of ``cuvs_tpu.neighbors.ivf_scan``.
 
 The (query, probe) pairs are grouped by list into fixed-width pair tiles
 (``group_pairs_tiled``); each tile is scored against its list's window by a
 fused scan kernel (``ops.ivf_scan``: raw rows for IVF-Flat, packed codes for
 IVF-PQ and IVF-RaBitQ), which keeps the best ``cap`` rows per strided lane
 bin; a final top-k over each query's per-probe pools picks the result.
+
+The unfused scans (``cluster_major_scan``, ``cluster_major_scan_tiled``,
+``cluster_major_scan_pq``) score a chunk of lists or tiles by one batched
+product in PyTorch: they serve what the kernels do not (cosine, metric UDFs,
+per-cluster PQ codebooks, indexes without a serving layout).
 
 The quantized indexes' serving layout (``pack_codes_transposed``,
 ``decoded_norms``) drops the reference's TPU padding (word rows to a multiple
@@ -19,6 +24,7 @@ from typing import Tuple
 import torch
 
 from cuvs_tpu_torch.core import bitpack, bitset
+from cuvs_tpu_torch.distance import pairwise
 from cuvs_tpu_torch.distance.pairwise import DistanceType
 from cuvs_tpu_torch.neighbors import filters as filt
 from cuvs_tpu_torch.neighbors import ivf_common as ivf
@@ -31,6 +37,41 @@ def _round_window_up(window: int, n_pad: int) -> int:
     base = window + 128
     rounded = -(-base // 512) * 512
     return rounded if rounded <= n_pad else base
+
+
+def max_occupancy(probe_ids: torch.Tensor, n_lists: int) -> torch.Tensor:
+    """Largest number of (query, probe) pairs landing on one list (0-d).
+    Callers size ``group_pairs``' slot axis with it so no pair is dropped."""
+    return torch.bincount(probe_ids.reshape(-1).long(), minlength=n_lists).max()
+
+
+def _rank_in_group(flat_c: torch.Tensor):
+    """Stable sort of the pairs by list: (order, sorted lists, rank of each
+    sorted pair within its list)."""
+    order = torch.argsort(flat_c, stable=True)
+    c_s = flat_c[order]
+    idx = torch.arange(c_s.shape[0], device=c_s.device)
+    first = torch.ones_like(c_s, dtype=torch.bool)
+    first[1:] = c_s[1:] != c_s[:-1]
+    return order, c_s, idx - torch.cummax(torch.where(first, idx, 0), 0).values
+
+
+def group_pairs(probe_ids: torch.Tensor, n_lists: int, max_per_cluster: int):
+    """Group (query, probe) pairs by list, ``max_per_cluster`` slots each.
+
+    Returns qidx [n_lists, M] (query per slot, -1 empty) and pair_slot
+    [nq, p] (slot of each pair; M = dropped), both int32."""
+    nq, p = probe_ids.shape
+    dev = probe_ids.device
+    flat_c = probe_ids.reshape(-1).long()
+    flat_q = torch.arange(nq, device=dev).repeat_interleave(p)
+    order, c_s, slot = _rank_in_group(flat_c)
+    keep = slot < max_per_cluster
+    qidx = torch.full((n_lists + 1, max_per_cluster), -1, dtype=torch.int64, device=dev)
+    qidx[torch.where(keep, c_s, n_lists), torch.where(keep, slot, 0)] = flat_q[order]
+    pair_slot = torch.empty_like(flat_c)
+    pair_slot[order] = torch.where(keep, slot, max_per_cluster)
+    return qidx[:n_lists].to(torch.int32), pair_slot.reshape(nq, p).to(torch.int32)
 
 
 def group_pairs_tiled(probe_ids: torch.Tensor, n_lists: int, m_tile: int, n_tiles: int):
@@ -51,14 +92,8 @@ def group_pairs_tiled(probe_ids: torch.Tensor, n_lists: int, m_tile: int, n_tile
     dev = probe_ids.device
     flat_c = probe_ids.reshape(-1).long()
     flat_q = torch.arange(nq, device=dev).repeat_interleave(p)
-    order = torch.argsort(flat_c, stable=True)
-    c_s = flat_c[order]
+    order, c_s, rank = _rank_in_group(flat_c)
     q_s = flat_q[order]
-    idx = torch.arange(nq * p, device=dev)
-    first = torch.ones_like(c_s, dtype=torch.bool)
-    first[1:] = c_s[1:] != c_s[:-1]
-    group_start = torch.cummax(torch.where(first, idx, 0), 0).values
-    rank = idx - group_start
     occ = torch.bincount(flat_c, minlength=n_lists)
     ntiles_c = -(-occ // m_tile)
     tile_base = torch.cumsum(ntiles_c, 0) - ntiles_c
@@ -105,10 +140,9 @@ def cluster_major_scan_fused(sorted_data, sorted_norms, lists: ivf.SortedLists, 
     """
     from cuvs_tpu_torch.ops import ivf_scan as ops_ivf_scan
 
-    d = queries_f32.shape[1]
     n_lists = lists.offsets.shape[0]
     ip = metric == DistanceType.InnerProduct
-    n_pad, dp = sorted_data.shape
+    n_pad = sorted_data.shape[0]
     W_k = _round_window_up(window, n_pad)
 
     flt = None if (prefilter is None or prefilter.is_none) else prefilter
@@ -125,15 +159,10 @@ def cluster_major_scan_fused(sorted_data, sorted_norms, lists: ivf.SortedLists, 
                                                                  n_tiles)
     _, al, lo, sizes = _tile_windows(tile_cluster, lists, n_pad, W_k)
 
-    qp = (torch.nn.functional.pad(queries_f32, (0, dp - d)) if dp != d else queries_f32)
-    if q_scale is not None:
-        qc = torch.clamp(torch.round(qp / q_scale), -127, 127).to(torch.int8)
-        scale2 = q_scale * q_scale
-        int8_mode = True
-    else:
-        qc = qp.to(compute_dtype)
-        scale2 = torch.ones((), dtype=torch.float32, device=qp.device)
-        int8_mode = False
+    qc, _, scale2 = _flat_operands(sorted_data, queries_f32, metric, compute_dtype, q_scale)
+    int8_mode = scale2 is not None
+    if not int8_mode:
+        scale2 = torch.ones((), dtype=torch.float32, device=qc.device)
     # strided lane bins: every window exposes 128 bins, so cap 2 covers
     # k <= ~32 with negligible collision loss
     cap = int(bin_cap) if bin_cap else int(min(32, max(2, -(-k // 32))))
@@ -409,9 +438,228 @@ def cluster_major_scan_rabitq_fused(codes_t, sorted_fa, sorted_fr, centers_rot, 
                               overfetch=overfetch)
 
 
-def cluster_major_scan_pq(*args, **kw):
-    """The reference's unfused decode-and-dot IVF-PQ scan: not ported yet
-    (ROADMAP.md queue 1 #4). IVF-PQ searches through
-    ``cluster_major_scan_pq_fused`` or ivf_pq's query-major scan."""
-    raise NotImplementedError("cluster_major_scan_pq is not ported yet (ROADMAP.md queue 1 #4); "
-                              "use scan_algo='fused' or 'query_major'")
+# ---------------------------------------------------------------------------
+# unfused cluster-major scans: one batched product per chunk of lists/tiles
+# ---------------------------------------------------------------------------
+
+def _windows(lists: ivf.SortedLists, cl: torch.Tensor, window: int):
+    """Per list (or tile; -1 = empty) of a chunk: the list id clamped into
+    range and the window's ids, labels and start positions."""
+    safe_c = torch.clamp(cl.long(), 0, lists.offsets.shape[0] - 1)
+    starts = lists.offsets[safe_c]
+    return (safe_c, starts, ivf.window_gather(lists.ids, starts, window),
+            ivf.window_gather(lists.labels, starts, window))
+
+
+def _masked(order, qi, safe_q, safe_c, ids_w, lab_w, prefilter):
+    """+inf where a window row is not in the list, a slot is empty or the
+    filter drops the (query, row) pair. order [C, M, W]."""
+    valid = (lab_w == safe_c[:, None])[:, None, :] & (qi >= 0)[:, :, None]
+    mask = filt.passes(prefilter, safe_q[:, :, None], ids_w[:, None, :])
+    if mask is not None:
+        valid = valid & mask
+    return torch.where(valid, order, float("inf"))
+
+
+def _row_topk(order, ids_w, kk: int, recall_target):
+    """Per (list, slot) top-kk of order [C, M, W] -> (values, ids) [C, M, kk]."""
+    C, M, W = order.shape
+    tv, tl = topk(order.reshape(C * M, W), kk, True, recall_target)
+    ti = torch.gather(ids_w[:, None, :].expand(C, M, W).reshape(C * M, W), 1, tl)
+    return tv.reshape(C, M, -1), ti.reshape(C, M, -1)
+
+
+def _flat_chunk(sorted_data, sorted_norms, lists, qi, cl, qc_all, qn, queries_f32, scale2,
+                q_scale, metric, window, compute_dtype, prefilter, kk, recall_target):
+    """Scores of one chunk of lists or tiles (qi [C, M] queries, cl [C]
+    lists) against their windows, masked, and each slot's top-kk."""
+    is_udf = callable(metric) and not isinstance(metric, DistanceType)
+    safe_c, starts, ids_w, lab_w = _windows(lists, cl, window)
+    data_w = ivf.window_gather(sorted_data, starts, window)  # [C, W, dp]
+    norm_w = ivf.window_gather(sorted_norms, starts, window)
+    safe_q = torch.clamp_min(qi.long(), 0)
+    if is_udf:
+        # fn(q [M, d], rows [W, d]) -> [M, W] per tile, vmapped over the chunk;
+        # quantized rows are dequantized first
+        d = queries_f32.shape[1]
+        data_f = data_w[..., :d].float()
+        if q_scale is not None:
+            data_f = data_f * q_scale
+        order = torch.func.vmap(metric)(queries_f32[safe_q], data_f).float()
+    else:
+        if scale2 is not None:  # int8 rows and queries: exact int32 dots
+            dots = pairwise.int_dots(qc_all[safe_q], data_w).float() * scale2
+        else:
+            dots = torch.bmm(qc_all[safe_q].float(),
+                             data_w.to(compute_dtype).float().transpose(1, 2))
+        if metric == DistanceType.InnerProduct:
+            order = -dots
+        elif metric == DistanceType.CosineExpanded:
+            order = 1.0 - dots / torch.clamp_min(qn[safe_q][:, :, None]
+                                                 * torch.sqrt(norm_w)[:, None, :], 1e-30)
+        else:
+            order = torch.clamp_min(qn[safe_q][:, :, None] + norm_w[:, None, :] - 2.0 * dots, 0.0)
+    order = _masked(order, qi, safe_q, safe_c, ids_w, lab_w, prefilter)
+    return _row_topk(order, ids_w, kk, recall_target)
+
+
+def _flat_operands(sorted_data, queries_f32, metric, compute_dtype, q_scale):
+    """Queries padded to the stored width and cast (int8 with the index's
+    scale), their norms (L2 for cosine) and the int8 rescale q_scale^2."""
+    d = queries_f32.shape[1]
+    dp = sorted_data.shape[1]
+    qpad = torch.nn.functional.pad(queries_f32, (0, dp - d)) if dp != d else queries_f32
+    qn = (queries_f32 * queries_f32).sum(1)
+    if metric == DistanceType.CosineExpanded:
+        qn = torch.sqrt(qn)
+    if q_scale is not None:
+        return torch.clamp(torch.round(qpad / q_scale), -127, 127).to(torch.int8), qn, \
+            q_scale * q_scale
+    return qpad.to(compute_dtype), qn, None
+
+
+def _final_pool(tv, ti, rows, cols, k: int, metric):
+    """Gather each pair's per-slot results (rows, cols [nq, p] index the
+    [R, M, kk] results padded with one +inf row/column for dropped pairs),
+    then the exact top-k over the [nq, p * kk] pool."""
+    nq, p = rows.shape
+    kk = tv.shape[2]
+    pv = tv[rows.long(), cols.long()].reshape(nq, p * kk)
+    pi = ti[rows.long(), cols.long()].reshape(nq, p * kk)
+    fv, fl = topk(pv, k, True)
+    fi = torch.gather(pi, 1, fl)
+    if metric == DistanceType.InnerProduct:
+        fv = -fv
+    return ivf.postprocess_distances(fv, metric), fi
+
+
+def cluster_major_scan(sorted_data, sorted_norms, lists: ivf.SortedLists, queries_f32, probe_ids,
+                       prefilter, k: int, metric, window: int, max_per_cluster: int,
+                       cluster_chunk: int, compute_dtype, recall_target=None, q_scale=None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """IVF-Flat cluster-major search over ``max_per_cluster`` slots per list
+    (size it with ``max_occupancy`` so no pair drops). Returns (dists
+    [nq, k], ids [nq, k]). ``q_scale`` set: int8 rows and quantized queries,
+    exact int32 dots rescaled by q_scale^2; norms stay exact f32."""
+    n_lists = lists.offsets.shape[0]
+    M = max_per_cluster
+    qc_all, qn, scale2 = _flat_operands(sorted_data, queries_f32, metric, compute_dtype, q_scale)
+    qidx, pair_slot = group_pairs(probe_ids, n_lists, M)
+    kk = min(k, window)
+    cl_ids = torch.arange(n_lists, device=queries_f32.device)
+    parts = [_flat_chunk(sorted_data, sorted_norms, lists, qidx[c0:c0 + cluster_chunk],
+                         cl_ids[c0:c0 + cluster_chunk], qc_all, qn, queries_f32, scale2, q_scale,
+                         metric, window, compute_dtype, prefilter, kk, recall_target)
+             for c0 in range(0, n_lists, cluster_chunk)]
+    # one extra slot column: dropped pairs (pair_slot == M) land there
+    tv = torch.nn.functional.pad(torch.cat([v for v, _ in parts]), (0, 0, 0, 1),
+                                 value=float("inf"))
+    ti = torch.nn.functional.pad(torch.cat([i for _, i in parts]), (0, 0, 0, 1))
+    return _final_pool(tv, ti, probe_ids, pair_slot, k, metric)
+
+
+def cluster_major_scan_tiled(sorted_data, sorted_norms, lists: ivf.SortedLists, queries_f32,
+                             probe_ids, prefilter, k: int, metric, window: int, m_tile: int,
+                             cluster_chunk: int, compute_dtype, recall_target, n_tiles: int,
+                             q_scale=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """IVF-Flat cluster-major search over fixed-width pair tiles
+    (``group_pairs_tiled``): each chunk of ``cluster_chunk`` tiles is one
+    batched product [C, M, dp] x [C, W, dp] -> [C, M, W], masked, and each
+    slot keeps its top-k. L2, IP, cosine and metric UDFs: a UDF
+    ``fn(q [M, d], rows [W, d]) -> [M, W]`` is called per tile through
+    ``torch.func.vmap`` over the chunk's tiles, so a UDF that broadcasts
+    builds [C, M, W, d] at once: ``ivf_flat.search`` sizes ``cluster_chunk``
+    for that block. ``q_scale`` set: int8 rows."""
+    n_lists = lists.offsets.shape[0]
+    qc_all, qn, scale2 = _flat_operands(sorted_data, queries_f32, metric, compute_dtype, q_scale)
+    tile_cluster, qidx, pair_tile, pair_slot = group_pairs_tiled(probe_ids, n_lists, m_tile,
+                                                                 n_tiles)
+    kk = min(k, window)
+    parts = [_flat_chunk(sorted_data, sorted_norms, lists, qidx[t0:t0 + cluster_chunk],
+                         tile_cluster[t0:t0 + cluster_chunk], qc_all, qn, queries_f32, scale2,
+                         q_scale, metric, window, compute_dtype, prefilter, kk, recall_target)
+             for t0 in range(0, n_tiles, cluster_chunk)]
+    # one extra tile row: dropped pairs (pair_tile == n_tiles) land there
+    tv = torch.nn.functional.pad(torch.cat([v for v, _ in parts]), (0, 0, 0, 0, 0, 1),
+                                 value=float("inf"))
+    ti = torch.nn.functional.pad(torch.cat([i for _, i in parts]), (0, 0, 0, 0, 0, 1))
+    return _final_pool(tv, ti, pair_tile, pair_slot, k, metric)
+
+
+def _bin_rounds(order, ids_w, cap: int):
+    """``cap`` masked-max rounds over the 128-position bins of each slot's
+    window (the fused kernels' selection): round r keeps each bin's best
+    remaining entry, first index at ties. Returns (values, ids) [C, M,
+    cap * F], column round * F + bin."""
+    C, M, W = order.shape
+    F = W // 128
+    neg = (-order).reshape(C * M, F, 128)
+    fbase = torch.arange(F, device=order.device)[None, :] * 128
+    ids_b = ids_w[:, None, :].expand(C, M, W).reshape(C * M, W)
+    vs, is_ = [], []
+    for r in range(cap):
+        mv, am = torch.max(neg, dim=2)
+        vs.append(-mv)
+        is_.append(torch.gather(ids_b, 1, fbase + am))
+        if r + 1 < cap:
+            neg = neg.scatter(2, am[:, :, None], float("-inf"))
+    return torch.cat(vs, 1).reshape(C, M, -1), torch.cat(is_, 1).reshape(C, M, -1)
+
+
+def cluster_major_scan_pq(sorted_codes, centers, centers_rot, pq_centers, rotation,
+                          lists: ivf.SortedLists, queries_f32, probe_ids, prefilter, k: int, metric,
+                          window: int, max_per_cluster: int, cluster_chunk: int, compute_dtype,
+                          recall_target=None, pq_bits: int = 8, codebook_gen: str = "per_subspace",
+                          pq_dim_s: int = 0, bin_cap: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """IVF-PQ cluster-major search by decode-and-dot: each list's window is
+    reconstructed once in the rotated space (``centers_rot[c] + codebook[s,
+    code]``; per-cluster codebooks ``pq_centers[c]``) and scored against the
+    list's queries by one batched product, which ranks as the ADC table does
+    for L2 and IP. ``bin_cap > 0`` selects per window by ``bin_cap``
+    masked-max rounds over 128-position bins (``_bin_rounds``) instead of an
+    exact per-slot top-k; PQ candidates feed refine() anyway."""
+    n_lists = lists.offsets.shape[0]
+    M = max_per_cluster
+    per_cluster = codebook_gen == "per_cluster"
+    if per_cluster:
+        pq_dim = pq_dim_s
+        _, book, pq_len = pq_centers.shape
+    else:
+        pq_dim, book, pq_len = pq_centers.shape
+    rot_dim = pq_dim * pq_len
+    dev = queries_f32.device
+    qidx, pair_slot = group_pairs(probe_ids, n_lists, M)
+    qrot = (queries_f32 @ rotation.T).to(compute_dtype)
+    qn = (queries_f32 * queries_f32).sum(1)
+    F = window // 128
+    kk = min(bin_cap, 128) * F if bin_cap else min(k, window)
+    sub_ids = torch.arange(pq_dim, device=dev)
+    cl_ids = torch.arange(n_lists, device=dev)
+    parts = []
+    for c0 in range(0, n_lists, cluster_chunk):
+        qi = qidx[c0:c0 + cluster_chunk]
+        safe_c, starts, ids_w, lab_w = _windows(lists, cl_ids[c0:c0 + cluster_chunk], window)
+        C = qi.shape[0]
+        words_w = ivf.window_gather(sorted_codes, starts, window)  # [C, W, words]
+        codes_w = bitpack.unpack(words_w, pq_bits, pq_dim).long()  # [C, W, S]
+        if per_cluster:
+            recon = pq_centers[safe_c][torch.arange(C, device=dev)[:, None, None], codes_w]
+        else:
+            recon = pq_centers[sub_ids[None, None, :], codes_w]  # [C, W, S, pq_len]
+        y = recon.reshape(C, window, rot_dim) + centers_rot[safe_c][:, None, :]
+        yn = (y * y).sum(2)
+        safe_q = torch.clamp_min(qi.long(), 0)
+        dots = torch.bmm(qrot[safe_q].float(), y.to(compute_dtype).float().transpose(1, 2))
+        if metric == DistanceType.InnerProduct:
+            order = -dots
+        else:
+            order = torch.clamp_min(qn[safe_q][:, :, None] + yn[:, None, :] - 2.0 * dots, 0.0)
+        order = _masked(order, qi, safe_q, safe_c, ids_w, lab_w, prefilter)
+        if bin_cap:
+            parts.append(_bin_rounds(order, ids_w, min(bin_cap, 128)))
+        else:
+            parts.append(_row_topk(order, ids_w, kk, recall_target))
+    tv = torch.nn.functional.pad(torch.cat([v for v, _ in parts]), (0, 0, 0, 1),
+                                 value=float("inf"))
+    ti = torch.nn.functional.pad(torch.cat([i for _, i in parts]), (0, 0, 0, 1))
+    return _final_pool(tv, ti, probe_ids, pair_slot, k, metric)

@@ -1,1 +1,1 @@
-"""Tracing annotations."""
+"""Tracing annotations and index files."""

@@ -7,7 +7,8 @@ import torch
 
 from cuvs_tpu_torch import interop
 from cuvs_tpu_torch.cluster import kmeans_balanced
-from cuvs_tpu_torch.neighbors import brute_force, ivf_flat, ivf_pq, ivf_rabitq, refine
+from cuvs_tpu_torch.neighbors import brute_force, ivf_flat, ivf_pq, ivf_rabitq, ivf_sq, refine
+from cuvs_tpu_torch.preprocessing import quantize
 from cuvs_tpu_torch.utils import device as dev_mod
 
 torch.set_num_threads(1)
@@ -25,6 +26,12 @@ _ENTRIES = {
                                                            device=device).centers,
     "refine.refine": lambda x, device: refine.refine(
         x, x[:4], np.tile(np.arange(8, dtype=np.int32), (4, 1)), 2, device=device)[0],
+    "ivf_sq.build": lambda x, device: ivf_sq.build(x, n_lists=4, seed=0, device=device).centers,
+    "ivf_flat.build_streaming": lambda x, device: ivf_flat.build_streaming(
+        lambda i: x, 1, n_lists=4, trainset_rows=256, device=device).centers,
+    "refine.refine_host": lambda x, device: refine.refine_host(
+        _X, x[:4], np.tile(np.arange(8, dtype=np.int32), (4, 1)), 2, device=device)[0],
+    "quantize.scalar_train": lambda x, device: quantize.scalar_train(x, device=device).min_,
     "kmeans_balanced.fit": lambda x, device: kmeans_balanced.fit(x, 4, device=device),
     "kmeans_balanced.predict": lambda x, device: kmeans_balanced.predict(x, x[:4],
                                                                          device=device),

@@ -437,3 +437,116 @@ def test_ivf_build_is_reproducible(cuda):
     b = ivf_flat.build(x, n_lists=64, seed=0)
     assert torch.equal(a.centers, b.centers)
     assert torch.equal(a.lists.ids, b.lists.ids)
+
+
+def _moved(index, dev):
+    """A copy of an index dataclass with every tensor on ``dev``."""
+    import dataclasses
+
+    from cuvs_tpu_torch.neighbors.ivf_common import SortedLists
+
+    kw = {}
+    for f in dataclasses.fields(index):
+        v = getattr(index, f.name)
+        if isinstance(v, torch.Tensor):
+            v = v.to(dev)
+        elif isinstance(v, SortedLists):
+            v = SortedLists(*(t.to(dev) for t in v))
+        kw[f.name] = v
+    return type(index)(**kw)
+
+
+def _blobs(seed, n, d):
+    rng = np.random.default_rng(seed)
+    centers = rng.standard_normal((40, d)) * 5.0
+    return (centers[rng.integers(0, 40, n)] + rng.standard_normal((n, d))).astype(np.float32)
+
+
+def test_streamed_int8_index_scan_kernel_matches_plain(cuda, monkeypatch):
+    """An int8 index built by build_streaming (host mode) at d = 96, its rows
+    padded to 128: the ivf_scan kernel's pool is bit-identical to the plain
+    version's on the inputs the search gives it."""
+    from cuvs_tpu_torch.neighbors import ivf_flat
+
+    x = _blobs(6, 24000, 96)
+    idx = ivf_flat.build_streaming(lambda i: x[i * 6000:(i + 1) * 6000], 4, n_lists=64,
+                                   trainset_rows=8000, device=cuda)
+    assert idx.sorted_data.dtype == torch.int8 and idx.sorted_data.shape[1] == 128
+    calls = []
+    real = ivf_scan.fused_ivf_scan
+    monkeypatch.setattr(ivf_scan, "fused_ivf_scan",
+                        lambda *a, **k: calls.append((a, k)) or real(*a, **k))
+    q = torch.from_numpy(x[:300] + 0.1).to(cuda)
+    ivf_flat.search(idx, q, 10, n_probes=16, scan_algo="fused")
+    (args, kw), = calls
+    kv, ki = real(*args, **kw)
+    torch.cuda.synchronize()
+    rv, ri = ivf_scan.fused_ivf_scan_reference(*args, **kw)
+    _assert_pool(kv, ki, rv, ri, exact_ints=True)
+
+
+@pytest.mark.parametrize("case", ["l2", "cosine", "int8", "pq_per_subspace", "pq_per_cluster",
+                                  "sq"])
+def test_unfused_scans_on_the_card_match_the_cpu(cuda, case):
+    """cluster_major_scan_tiled (IVF-Flat), cluster_major_scan_pq (IVF-PQ,
+    bins) and the IVF-SQ scan: the same call on CUDA and CPU tensors."""
+    from torch_parity import ids_match_modulo_ties
+
+    from cuvs_tpu_torch.neighbors import ivf_flat, ivf_pq, ivf_sq
+
+    x, q = _blobs(7, 8000, 40), torch.from_numpy(_blobs(8, 200, 40))
+    xt = torch.from_numpy(x)
+    kw = dict(n_probes=8, scan_algo="cluster_major")
+    if case.startswith("pq"):
+        mod = ivf_pq
+        idx = ivf_pq.build(xt, n_lists=32, pq_dim=10, pq_bits=6, seed=0,
+                           codebook_gen=case[3:], max_train_points_per_pq_code=32)
+    elif case == "sq":
+        mod, kw = ivf_sq, dict(n_probes=8)
+        idx = ivf_sq.build(xt, n_lists=32, seed=0)
+    else:
+        mod = ivf_flat
+        idx = ivf_flat.build(xt, n_lists=32, seed=0, metric="cosine" if case == "cosine" else "l2",
+                             storage_dtype=torch.int8 if case == "int8" else None)
+    cd, ci = mod.search(idx, q, 10, **kw)
+    gd, gi = mod.search(_moved(idx, cuda), q.to(cuda), 10, **kw)
+    torch.testing.assert_close(gd.cpu(), cd, rtol=RTOL, atol=ATOL)
+    ids_match_modulo_ties(gi.cpu().numpy(), ci.numpy(), cd.numpy(), RTOL, ATOL)
+
+
+def test_device_mode_build_streaming_matches_host_mode(cuda):
+    """Device mode labels the f32 rows, host mode their bf16 roundings: the
+    same centers, the same int8 row for every id, labels equal but for rows
+    near a boundary, norms f32 sums in another order."""
+    from cuvs_tpu_torch.neighbors import ivf_flat
+
+    x = _blobs(9, 40000, 96)
+    kw = dict(n_lists=64, trainset_rows=10000, device=cuda)
+    h = ivf_flat.build_streaming(lambda i: x[i * 10000:(i + 1) * 10000], 4, **kw)
+    d = ivf_flat.build_streaming(
+        lambda i: torch.from_numpy(x[i * 10000:(i + 1) * 10000]).to(cuda), 4, **kw)
+    assert torch.equal(h.centers, d.centers) and torch.equal(h.q_scale, d.q_scale)
+    n = h.n_rows
+    oh, od = (torch.argsort(ix.lists.ids[:n].long()) for ix in (h, d))
+    assert torch.equal(h.sorted_data[:n][oh], d.sorted_data[:n][od])
+    torch.testing.assert_close(h.sorted_norms[:n][oh], d.sorted_norms[:n][od], rtol=1e-6, atol=0)
+    assert (h.lists.labels[:n][oh] != d.lists.labels[:n][od]).float().mean() < 0.01
+
+
+def test_serialize_round_trip_on_the_card(cuda, tmp_path):
+    from cuvs_tpu_torch.neighbors import ivf_flat, ivf_pq
+    from cuvs_tpu_torch.utils import serialize
+
+    x = torch.from_numpy(_blobs(10, 20000, 64)).to(cuda)
+    q = x[:256] + 0.05
+    for index, search in (
+            (ivf_pq.build(x, n_lists=32, pq_dim=32, seed=0),
+             lambda ix: ivf_pq.search(ix, q, 10, n_probes=8, scan_algo="fused")),
+            (ivf_flat.build(x, n_lists=32, seed=0, storage_dtype=torch.bfloat16),
+             lambda ix: ivf_flat.search(ix, q, 10, n_probes=8, scan_algo="fused"))):
+        path = str(tmp_path / "index.npz")
+        serialize.save(path, index)
+        loaded = serialize.load(path)
+        assert loaded.centers.is_cuda
+        (a, b), (c, e) = search(index), search(loaded)
+        assert torch.equal(a, c) and torch.equal(b, e)

@@ -22,7 +22,7 @@ import torch
 from cuvs_tpu.neighbors import filters as jax_filters
 from cuvs_tpu.neighbors import ivf_pq as jax_pq
 from cuvs_tpu_torch import interop
-from cuvs_tpu_torch.neighbors import filters, ivf_pq, ivf_scan, refine
+from cuvs_tpu_torch.neighbors import filters, ivf_pq, refine
 from tests.torch_parity import ids_match_modulo_ties
 from tests.utils import calc_recall, make_blobs, naive_knn
 
@@ -203,19 +203,25 @@ def test_chunked_residuals_match_unchunked(monkeypatch):
 
 
 def test_unported_parts_raise(data):
+    """The parts that raised before they were ported (per-cluster codebooks,
+    build_streaming, extend, the cluster-major scan) now run; only an
+    unknown scan algorithm is refused, and auto runs query_major for a small
+    batch of CPU queries."""
     x, q = data
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ivf_pq.build(torch.from_numpy(x), n_lists=8, pq_dim=8, codebook_gen="per_cluster")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ivf_pq.build_streaming(lambda i: x, 1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ivf_scan.cluster_major_scan_pq()
+    pc = ivf_pq.build(torch.from_numpy(x), n_lists=8, pq_dim=8, pq_bits=5, seed=0,
+                      codebook_gen="per_cluster")
+    assert pc.pq_centers.shape == (8, 32, 4) and pc.sorted_codes_t is None
+    st = ivf_pq.build_streaming(lambda i: x[i * 1000:(i + 1) * 1000], 3, n_lists=8, pq_dim=8,
+                                pq_bits=4, trainset_rows=1000, device="cpu")
+    assert st.n_rows == 3000
     idx = ivf_pq.build(torch.from_numpy(x[:600]), n_lists=4, pq_dim=8, pq_bits=4, seed=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ivf_pq.extend(idx, x[:10])
+    assert ivf_pq.extend(idx, x[:10]).n_rows == 610
+    for index in (pc, st, idx):
+        d, i = ivf_pq.search(index, torch.from_numpy(q), 5, n_probes=4, scan_algo="cluster_major")
+        assert bool(torch.isfinite(d).all())
     with pytest.raises(ValueError, match="cluster_major"):
-        ivf_pq.search(idx, torch.from_numpy(q), 5, scan_algo="cluster_major")
-    # auto runs query_major for CPU queries
-    a = ivf_pq.search(idx, torch.from_numpy(q), 5, n_probes=4)
-    b = ivf_pq.search(idx, torch.from_numpy(q), 5, n_probes=4, scan_algo="query_major")
+        ivf_pq.search(idx, torch.from_numpy(q), 5, scan_algo="bogus")
+    qs = torch.from_numpy(q[:3])
+    a = ivf_pq.search(idx, qs, 5, n_probes=4)
+    b = ivf_pq.search(idx, qs, 5, n_probes=4, scan_algo="query_major")
     assert torch.equal(a[1], b[1])
