@@ -52,7 +52,34 @@ same shape): 1,000,000 x 128 f32, 4096 queries, k = 10.
  16. IVF-SQ (1024 lists: ivf_sq.yaml ``base``), 50 probes, alone and + refine
      (at most 0.01 below phase 6 + refine: the same lists and probes);
  17. ``serialize.save`` then ``load`` of the phase-6 IVF-PQ and phase-11
-     IVF-Flat indexes in a temporary directory: searches bit-identical.
+     IVF-Flat indexes in a temporary directory: searches bit-identical;
+ 18. CAGRA built as bench.py builds it (128 -> 64, ``auto``: the partitioned
+     exact knn graph at 1M, bf16 operands), its seconds split into the knn
+     graph and ``optimize`` (detour counts apart); every id of the graph in
+     [0, n), no self edge, no repeat within a row; the knn graph's recall@128
+     on 1024 sampled rows against their exact neighbours (unfused brute
+     force, k = 129), beside the share of those neighbours that lie in one of
+     the row's two clusters (the partition's bound) and the recall of a bf16
+     search over all rows (the operands' bound);
+ 19. CAGRA search at itopk 64 and 128 (search_width 2, bf16, one chunk of
+     4096): recall@10 and QPS, itopk 128 at most 0.005 below 64; then itopk 64
+     + exact refine from 40 candidates (not below the unrefined), climbing
+     bench.py's ladder (128, 192) until recall@10 >= 0.95, or failing; the
+     first 256 queries searched on a CPU copy of the index with the same seeds
+     must return >= 99% of the card's (query, rank) ids; and, as a control of
+     the graph degree, phase 18's knn graph pruned to 32 and searched at
+     itopk 64 (recall and QPS printed, no floor);
+ 20. CAGRA built through IVF-PQ + refine (96 -> 64, of cagra.yaml ``base``:
+     the degree of phase 19's graph, so the two builds compare): one fused
+     ``pq_scan`` launch per 4096-row batch of the self-search (recorded as
+     its own variant), the knn graph's recall@96 on phase 18's sampled rows,
+     and its search at itopk 64 alone and + refine (at most 0.10 below phase
+     19's itopk 64);
+ 21. unfused brute force for L1 and Linf over the 1M rows with 256 queries,
+     held against ``torch.cdist`` + ``torch.topk`` (used only to check: ids
+     equal except at ties, distances rtol 1e-5), ms per batch; and
+     ``pairwise_distance`` for every metric on 512 x 512 x 128 on the card
+     against the same call on the CPU (rtol 1e-5, atol 1e-5).
 
 Launch counters are zeroed just before that run and read just after; every
 kernel of the path must have launched. Then each kernel is held against its
@@ -64,7 +91,7 @@ lookup table within that tolerance except where an entry's lut/scale sits on
 a rounding boundary (<= 0.1% of entries). Each approximate phase's recall may
 be at most 0.005 below the recall of the same search run on the plain
 versions, and each refined phase's recall may not be below its unrefined
-phase's. Kernel and plain times are CUDA-event times of one call at the
+phase's (the CAGRA searches run no kernel and are not rerun). Kernel and plain times are CUDA-event times of one call at the
 path's shapes, after a warm-up call. Beside each: its bound (the least time
 the card could take: bytes over the memory rate or operations over the peak
 rate of their type, cuvs_tpu_torch/bench/roofline.py), its share of that
@@ -146,19 +173,34 @@ def variant(name, args, kw):
 
 @contextlib.contextmanager
 def recording(calls):
-    """Record each wrapper's arguments (last call per kernel and variant)."""
+    """Record each wrapper's arguments: the last call per kernel and variant.
+    Yields ``tagged(suffix)``, a context inside which calls are recorded apart,
+    under their variant + suffix, keeping the first call (a build's first
+    batch is a full one)."""
+    tag = [""]
+
+    @contextlib.contextmanager
+    def tagged(suffix):
+        tag[0] = suffix
+        try:
+            yield
+        finally:
+            tag[0] = ""
+
     saved = []
     for name, mod, wrapper, _, _, _ in kernels():
         fn = getattr(mod, wrapper)
 
         def rec(*args, _fn=fn, _name=name, **kw):
-            calls[(_name, variant(_name, args, kw))] = (args, kw)
+            key = (_name, variant(_name, args, kw) + tag[0])
+            if not tag[0] or key not in calls:
+                calls[key] = (args, kw)
             return _fn(*args, **kw)
 
         saved.append((mod, wrapper, fn))
         setattr(mod, wrapper, rec)
     try:
-        yield
+        yield tagged
     finally:
         for mod, wrapper, fn in saved:
             setattr(mod, wrapper, fn)
@@ -205,6 +247,72 @@ def compare_pools(kernel_out, plain_out, kind):
     return (float(err.max()) if err.numel() else 0.0), identical
 
 
+@contextlib.contextmanager
+def timed_calls(targets, times):
+    """Wrap each (module, function) so every call is timed to its end on the
+    card: times[name] = (seconds, last output), seconds summed over calls."""
+    import torch
+
+    saved = []
+    for mod, name in targets:
+        fn = getattr(mod, name)
+
+        def timed(*args, _fn=fn, _name=name, **kw):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            out = _fn(*args, **kw)
+            torch.cuda.synchronize()
+            times[_name] = (times.get(_name, (0.0, None))[0] + time.time() - t0, out)
+            return out
+
+        saved.append((mod, name, fn))
+        setattr(mod, name, timed)
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def check_graph(graph, n, what):
+    """Every id in [0, n), no self edge, no repeat within a row."""
+    import torch
+
+    check(bool(((graph >= 0) & (graph < n)).all()), f"{what}: ids outside [0, n)")
+    rows = torch.arange(graph.shape[0], device=graph.device)[:, None]
+    check(not bool((graph == rows).any()), f"{what}: self edges")
+    s = torch.sort(graph, dim=1).values
+    check(not bool((s[:, 1:] == s[:, :-1]).any()), f"{what}: repeated ids within a row")
+
+
+def without_self(ids, rows, k):
+    """The first k ids of each row of ``ids`` other than its own id, rows[i]."""
+    import torch
+
+    order = torch.argsort((ids == rows[:, None]).to(torch.int8), dim=1, stable=True)[:, :k]
+    return torch.gather(ids, 1, order)
+
+
+def pairwise_inputs(metric, gen, m, d):
+    """Inputs each metric is meant for (on the host): packed bits, (lat, lon)
+    pairs, probability rows, 0/1 rows, or signed floats."""
+    import torch
+
+    from cuvs_tpu_torch.distance.pairwise import DistanceType as T
+
+    if metric == T.BitwiseHamming:
+        return [torch.randint(0, 256, (m, d), generator=gen, dtype=torch.uint8) for _ in "xy"]
+    if metric == T.Haversine:
+        scale = torch.tensor([3.14159, 6.28318])
+        return [(torch.rand((m, 2), generator=gen) - 0.5) * scale for _ in "xy"]
+    if metric in (T.JensenShannon, T.KLDivergence, T.HellingerExpanded):
+        out = [torch.rand((m, d), generator=gen) + 0.01 for _ in "xy"]
+        return [a / a.sum(1, keepdim=True) for a in out]
+    if metric in (T.HammingUnexpanded, T.JaccardExpanded, T.DiceExpanded, T.RusselRaoExpanded):
+        return [(torch.rand((m, d), generator=gen) > 0.5).float() for _ in "xy"]
+    return [torch.randn((m, d), generator=gen) for _ in "xy"]
+
+
 def check_same_ranking(d_a, i_a, d_b, i_b, what, rtol=1e-5):
     """Distances within rtol; ids equal wherever the distance at that rank
     does not tie (within rtol) a neighbouring rank's."""
@@ -235,7 +343,9 @@ def main() -> int:
     from cuvs_tpu_torch.bench.gt import exact_ground_truth, id_recall
     from cuvs_tpu_torch.bench.measure import timed_qps
     from cuvs_tpu_torch.core import bitpack
-    from cuvs_tpu_torch.neighbors import brute_force, ivf_flat, ivf_pq, ivf_rabitq, ivf_sq, refine
+    from cuvs_tpu_torch.distance import pairwise
+    from cuvs_tpu_torch.neighbors import (all_neighbors, brute_force, cagra, graph_core,
+                                          ivf_flat, ivf_pq, ivf_rabitq, ivf_sq, knn_graph, refine)
     from cuvs_tpu_torch.neighbors import ivf_scan as nb_ivf_scan
     from cuvs_tpu_torch.ops import _lib, bf_topk, ivf_scan
     from cuvs_tpu_torch.utils import serialize
@@ -252,17 +362,20 @@ def main() -> int:
 
     t0 = time.time()
     ds = datasets.load("sift-128-euclidean", max_rows=N)
-    x = torch.from_numpy(ds.base).to(dev)
+    # float32 rows, as the queries: the stand-in is float64 where numpy 2 runs (the reference's
+    # generator, which the port's reproduces byte for byte)
+    x = torch.from_numpy(ds.base).float().to(dev)
     q = torch.from_numpy(ds.queries[:NQ].astype("float32")).to(dev)
     n, dim = x.shape
     print(f"# dataset sift-128-euclidean{' (synthetic)' if ds.synthetic else ''}: "
           f"n={n} d={dim} nq={q.shape[0]} k={K} ({time.time() - t0:.1f} s)")
 
     results, calls = {}, {}
+    held0 = torch.cuda.memory_allocated(dev)  # the dataset and the queries
     for counter in (bf_topk.LAUNCHES, ivf_scan.LAUNCHES):
         for key in counter:
             counter[key] = 0
-    with recording(calls):
+    with recording(calls) as tagged:
         # 1. exact ground truth (fused exact kernel, unfused cross-check)
         t0 = time.time()
         bf = brute_force.build(x, metric=ds.metric)
@@ -455,8 +568,148 @@ def main() -> int:
                 check(torch.equal(a, c) and torch.equal(b, e),
                       f"{label}: search differs after save and load")
                 phase(label, lambda qq, _ix=loaded, _s=search: _s(_ix, qq))
+
+        peaks = [peak_before]
+
+        def phase_peak(label):
+            """Print the device-memory peak since the last reset, then reset."""
+            torch.cuda.synchronize()
+            peaks.append(torch.cuda.max_memory_allocated(dev))
+            torch.cuda.reset_peak_memory_stats(dev)
+            print(f"# {label}: peak device memory {peaks[-1] / 2**30:.2f} GiB "
+                  f"({held_at[0] / 2**30:.2f} GiB held before it)")
+            held_at[0] = torch.cuda.memory_allocated(dev)
+
+        held_at = [held0]
+        phase_peak("phases 1-17")
+        cg_res = {}
+
+        def cagra_phase(label, fn):
+            phase(label, fn)
+            cg_res[label] = results.pop(label)  # no kernel: no plain-version rerun
+
+        # 18. CAGRA build as bench.py:307-319 builds it: partitioned knn graph + optimize
+        split = {}
+        t0 = time.time()
+        with timed_calls([(knn_graph, "build_knn_graph"), (graph_core, "optimize"),
+                          (graph_core, "_detour_counts"), (all_neighbors, "_partition")], split):
+            cg = cagra.build(x, intermediate_graph_degree=128, graph_degree=64, build_algo="auto",
+                             metric=ds.metric, build_compute_dtype=torch.bfloat16,
+                             build_recall_target=0.97, seed=0)
+        torch.cuda.synchronize()
+        print(f"# cagra build 128 -> 64: {time.time() - t0:.1f} s (knn graph, partitioned: "
+              f"{split['build_knn_graph'][0]:.1f} s; optimize: {split['optimize'][0]:.1f} s, of "
+              f"which detour counts {split['_detour_counts'][0]:.1f} s)")
+        check(cg.graph.shape == (n, 64) and cg.graph.dtype == torch.int32, "cagra graph shape")
+        check_graph(cg.graph, n, "cagra graph")
+        knn128 = split["build_knn_graph"][1][0]
+        check_graph(knn128, n, "cagra knn graph")
+        # exact neighbours of 1024 sampled rows (unfused: k = 129 > the exact kernel's 64)
+        gen = torch.Generator().manual_seed(0)
+        rows = torch.randperm(n, generator=gen)[:1024].to(dev)
+        ex = without_self(brute_force.search(bf, x[rows], 129)[1], rows, 128).cpu()
+        # what bounds it: exact neighbours outside both of a row's clusters, bf16 operands
+        assign = split["_partition"][1]  # [n, 2] clusters of each row (host)
+        a_row, a_ex = assign[rows.cpu().numpy()], assign[ex.numpy()]
+        reach = (a_ex[:, :, :, None] == a_row[:, None, None, :]).any((2, 3)).mean()
+        exb = without_self(brute_force.search(bf, x[rows], 129, compute_dtype=torch.bfloat16)[1],
+                           rows, 128).cpu()
+        print(f"# cagra partitioned knn graph recall@128 on 1024 sampled rows: "
+              f"{id_recall(knn128[rows].cpu(), ex):.4f}; exact neighbours within the row's "
+              f"{assign.shape[1]} of {int(assign.max()) + 1} clusters {reach:.4f}; bf16 operands "
+              f"over all rows {id_recall(exb, ex):.4f}")
+        phase_peak("cagra build")
+        # 19. CAGRA search as bench.py:340-367 searches it
+        cg_sp = {it: cagra.SearchParams(itopk_size=it, search_width=2,
+                                        compute_dtype=torch.bfloat16, query_chunk=NQ)
+                 for it in (64, 128, 192)}
+        for it in (64, 128):
+            cagra_phase(f"cagra_itopk{it}", lambda qq, _sp=cg_sp[it]: cagra.search(cg, qq, K, _sp))
+        check(cg_res["cagra_itopk128"]["recall"] >= cg_res["cagra_itopk64"]["recall"] - RECALL_SLACK,
+              "cagra: itopk 128 recall more than 0.005 below itopk 64's")
+        for it in (64, 128, 192):  # bench.py's ladder, until refined recall@10 >= 0.95
+            label = f"cagra_itopk{it}_refine"
+            cagra_phase(label, lambda qq, _sp=cg_sp[it]: refine.refine(
+                x, qq, cagra.search(cg, qq, CAND, _sp)[1], K, metric=ds.metric))
+            if it in (64, 128):
+                check(cg_res[label]["recall"] >= cg_res[f"cagra_itopk{it}"]["recall"],
+                      f"{label}: recall below the unrefined search's")
+            if cg_res[label]["recall"] >= 0.95:
+                print(f"# cagra + refine reaches recall@10 >= 0.95 at itopk {it}")
+                break
+        else:
+            raise SmokeFailure("cagra + refine below recall@10 0.95 at itopk 64, 128 and 192")
+        cg_cpu = cagra.Index(dataset=cg.dataset.cpu(), dataset_norms=cg.dataset_norms.cpu(),
+                             graph=cg.graph.cpu(), metric=cg.metric)
+        t0 = time.time()
+        _, i_card = cagra.search(cg, q[:256], K, cg_sp[64])
+        _, i_host = cagra.search(cg_cpu, q[:256].cpu(), K, cg_sp[64])
+        same = float((i_card.cpu() == i_host).float().mean())
+        print(f"# cagra itopk 64 on the card and on a CPU copy, 256 queries, the same seeds: "
+              f"{same:.4f} of (query, rank) ids equal ({time.time() - t0:.1f} s)")
+        check(same >= 0.99, "cagra: the card's ids differ from the CPU's at more than 1%")
+        del cg_cpu
+        # control for phase 20's degree: phase 18's knn graph pruned to 32, itopk 64
+        cg32 = cagra.from_graph(x, graph_core.optimize(knn128, 32), metric=ds.metric)
+        cagra_phase("cagra_128to32_itopk64", lambda qq: cagra.search(cg32, qq, K, cg_sp[64]))
+        del cg32, knn128, split
+        phase_peak("cagra search")
+        # 20. CAGRA through IVF-PQ + refine, cagra.yaml base 96 -> 64
+        split20 = {}
+        launches_before = dict(ivf_scan.LAUNCHES)
+        t0 = time.time()
+        with tagged("-cagra-build"), timed_calls([(knn_graph, "build_knn_graph"),
+                                                  (graph_core, "optimize")], split20):
+            cg2 = cagra.build(x, intermediate_graph_degree=96, graph_degree=64, build_algo="ivf_pq",
+                              metric=ds.metric, seed=0)
+        torch.cuda.synchronize()
+        pq_builds = ivf_scan.LAUNCHES["pq_scan"] - launches_before["pq_scan"]
+        print(f"# cagra build ivf_pq 96 -> 64: {time.time() - t0:.1f} s (knn graph: "
+              f"{split20['build_knn_graph'][0]:.1f} s, {pq_builds} pq_scan launches; optimize: "
+              f"{split20['optimize'][0]:.1f} s)")
+        check(pq_builds >= -(-n // NQ), "cagra ivf_pq build: fewer pq_scan launches than batches")
+        check_graph(cg2.graph, n, "cagra ivf_pq graph")
+        knn96 = split20["build_knn_graph"][1][0]
+        knn_rec = id_recall(knn96[rows].cpu(), ex[:, :96])  # phase 18's rows and neighbours
+        print(f"# cagra ivf_pq knn graph recall@96 on 1024 sampled rows: {knn_rec:.4f}")
+        cagra_phase("cagra_ivfpq_itopk64", lambda qq: cagra.search(cg2, qq, K, cg_sp[64]))
+        cagra_phase("cagra_ivfpq_itopk64_refine", lambda qq: refine.refine(
+            x, qq, cagra.search(cg2, qq, CAND, cg_sp[64])[1], K, metric=ds.metric))
+        check(cg_res["cagra_ivfpq_itopk64"]["recall"] >= cg_res["cagra_itopk64"]["recall"] - 0.10,
+              "cagra ivf_pq: recall more than 0.10 below phase 19's itopk 64")
+        check(cg_res["cagra_ivfpq_itopk64_refine"]["recall"]
+              >= cg_res["cagra_ivfpq_itopk64"]["recall"], "cagra ivf_pq + refine below unrefined")
+        del cg2, knn96, split20
+        phase_peak("cagra ivf_pq build and search")
+        # 21. long-tail brute force, held against torch.cdist + torch.topk (a check only)
+        qs = q[:256]
+        for metric, p_norm in (("l1", 1.0), ("chebyshev", float("inf"))):
+            bfm = brute_force.build(x, metric=metric)
+            ms, (d, i) = cuda_ms(lambda: brute_force.search(bfm, qs, K))
+            lib_ms, (ld, li) = cuda_ms(lambda: torch.topk(torch.cdist(qs, x, p=p_norm), K,
+                                                          largest=False))
+            check_same_ranking(d, i, ld, li, f"brute force {metric} against torch.cdist")
+            print(f"# brute force {metric}, 256 queries x {n}: {ms:.1f} ms per batch (cdist + topk "
+                  f"{lib_ms:.1f} ms); ids equal except at ties")
+            del bfm
+        gen = torch.Generator().manual_seed(1)
+        used = {}  # the largest share of the tolerance atol + rtol * |cpu| used, per metric
+        for metric in pairwise.DistanceType:
+            if metric == pairwise.DistanceType.Precomputed:
+                continue
+            a, b = pairwise_inputs(metric, gen, 512, 128)
+            card = pairwise.pairwise_distance(a.to(dev), b.to(dev), metric=metric, p=3.0).cpu()
+            host = pairwise.pairwise_distance(a, b, metric=metric, p=3.0)
+            used[metric.name] = float(((card - host).abs() / (1e-5 + 1e-5 * host.abs())).max())
+            check(used[metric.name] <= 1.0,
+                  f"pairwise_distance {metric.name}: the card differs from the CPU")
+        top = sorted(used.items(), key=lambda kv: -kv[1])[:3]
+        print("# pairwise_distance, every metric, 512 x 512 x 128: the card matches the CPU "
+              "(rtol 1e-5, atol 1e-5; largest shares of the tolerance: "
+              + ", ".join(f"{m} {u:.3f}" for m, u in top) + ")")
+        phase_peak("long-tail brute force")
     torch.cuda.synchronize()
-    peak = max(peak_before, torch.cuda.max_memory_allocated(dev))
+    peak = max(*peaks, torch.cuda.max_memory_allocated(dev))
     print(f"# peak device memory: {peak / 2**30:.2f} GiB")
     launches = {**bf_topk.LAUNCHES, **ivf_scan.LAUNCHES}
     print("# launches during the main path: " + json.dumps(launches))

@@ -1,4 +1,4 @@
-"""cuvs_tpu_torch — cuvs_tpu's search and IVF indexes on PyTorch and CUDA.
+"""cuvs_tpu_torch — cuvs_tpu's search, IVF and CAGRA indexes on PyTorch and CUDA.
 
 The module layout and public signatures mirror ``cuvs_tpu``; tensors replace
 JAX arrays, and the TPU's Pallas kernels are hand-written CUDA kernels
@@ -10,7 +10,8 @@ from cuvs_tpu_torch import interop  # noqa: F401
 from cuvs_tpu_torch.cluster import kmeans_balanced  # noqa: F401
 from cuvs_tpu_torch.distance import fused_l2_nn, pairwise  # noqa: F401
 from cuvs_tpu_torch.neighbors import (  # noqa: F401
-    brute_force, filters, ivf_flat, ivf_pq, ivf_rabitq, ivf_scan, ivf_sq, refine)
+    all_neighbors, brute_force, cagra, filters, graph_core, ivf_flat, ivf_pq, ivf_rabitq,
+    ivf_scan, ivf_sq, knn_graph, nn_descent, refine)
 from cuvs_tpu_torch.ops import bf_topk, ivf_scan as ops_ivf_scan  # noqa: F401
 from cuvs_tpu_torch.preprocessing import quantize  # noqa: F401
 from cuvs_tpu_torch.selection import select_k  # noqa: F401

@@ -1,1 +1,1 @@
-"""Distances: the expanded metrics and the fused L2 argmin."""
+"""Distances: every pairwise metric (expanded, unexpanded, Haversine, bitwise Hamming) and the fused L2 argmin."""

@@ -15,7 +15,8 @@ import numpy as np
 import torch
 
 from cuvs_tpu_torch.distance.pairwise import normalize_metric
-from cuvs_tpu_torch.neighbors import brute_force, ivf_common, ivf_flat, ivf_pq, ivf_rabitq, ivf_sq
+from cuvs_tpu_torch.neighbors import (brute_force, cagra, ivf_common, ivf_flat, ivf_pq, ivf_rabitq,
+                                      ivf_sq)
 from cuvs_tpu_torch.utils.device import resolve_device
 
 
@@ -126,3 +127,11 @@ def ivf_sq_index_from_numpy(centers, center_norms, sorted_codes, sorted_norms, q
                         q_max=_tensor(q_max, device, torch.float32),
                         lists=_lists(offsets, sizes, ids, labels, device),
                         metric=normalize_metric(metric), window=int(window), n_rows=int(n_rows))
+
+
+def cagra_index_from_numpy(dataset, dataset_norms, graph, metric, device=None) -> cagra.Index:
+    """The port's CAGRA index over a reference index's arrays, so both
+    packages search the same graph (raw storage; bf16 rows bit for bit)."""
+    return cagra.Index(dataset=_tensor(dataset, device),
+                       dataset_norms=_tensor(dataset_norms, device, torch.float32),
+                       graph=_tensor(graph, device, torch.int32), metric=normalize_metric(metric))

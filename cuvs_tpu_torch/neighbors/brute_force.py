@@ -6,6 +6,13 @@ plus the metric epilogue, prefilters mask it with +inf, and a running top-k
 merges the tiles. ``fused=True`` routes unfiltered L2/IP searches to the fused
 distance + top-k kernels (``ops.bf_topk``): exact for k <= 64, approximate
 (per-lane-bin) with ``recall_target`` set and k <= 128.
+
+Every metric of ``DistanceType`` but ``Precomputed`` is served unfused: the
+long tail (L1, Linf, Lp, Canberra, ...) as a pointwise block over query-row
+tiles of ~256 MB (``pairwise.unexpanded``), Haversine and BitwiseHamming by
+their own blocks. The other expanded metrics (correlation, Hellinger,
+Russell-Rao, Jaccard, Dice) go through ``pairwise._expanded``; the
+reference's brute force sends them to its pointwise block, which raises.
 """
 
 from __future__ import annotations
@@ -84,12 +91,22 @@ def build(dataset, metric="sqeuclidean", metric_arg: float = 2.0, storage_dtype=
                  metric_arg=metric_arg)
 
 
-def _tile_distances(metric, q, qn, tile, tile_norms, compute_dtype, scale2=None):
+def _tile_distances(metric, q, qn, tile, tile_norms, metric_arg, compute_dtype, scale2=None):
     """Distances between query chunk [B,d] and dataset tile [T,d] -> [B,T].
 
     ``scale2`` set => q and tile are int8; dots are exact int32, rescaled."""
     if callable(metric) and not isinstance(metric, DistanceType):
         return metric(q.float(), tile.float()).float()  # metric UDF
+    if metric == DistanceType.BitwiseHamming:
+        return pairwise._bitwise_hamming(q, tile)
+    if metric == DistanceType.Haversine:
+        return pairwise._haversine(q.float(), tile.float())
+    if metric not in (DistanceType.L2Expanded, DistanceType.L2SqrtExpanded,
+                      DistanceType.InnerProduct, DistanceType.CosineExpanded):
+        if metric in pairwise._EXPANDED:
+            return pairwise._expanded(metric, q.float(), tile.float(), compute_dtype)
+        # the long tail: a pointwise block over query-row tiles of ~256 MB
+        return pairwise.unexpanded(metric, q, tile, metric_arg)
     if scale2 is None:
         dots = pairwise._gemm(q, tile, compute_dtype)
     else:
@@ -98,12 +115,10 @@ def _tile_distances(metric, q, qn, tile, tile_norms, compute_dtype, scale2=None)
         return torch.clamp_min(qn[:, None] + tile_norms[None, :] - 2.0 * dots, 0.0)
     if metric == DistanceType.InnerProduct:
         return dots
-    if metric == DistanceType.CosineExpanded:
-        return 1.0 - dots / torch.clamp_min(qn[:, None] * tile_norms[None, :], 1e-30)
-    raise NotImplementedError(f"metric {metric!r} is not ported yet")
+    return 1.0 - dots / torch.clamp_min(qn[:, None] * tile_norms[None, :], 1e-30)
 
 
-def _search_impl(dataset, norms, queries, prefilter, k, metric, tile_size, chunk,
+def _search_impl(dataset, norms, queries, prefilter, k, metric, metric_arg, tile_size, chunk,
                  compute_dtype, recall_target, q_scale=None):
     n = dataset.shape[0]
     nq = queries.shape[0]
@@ -132,7 +147,7 @@ def _search_impl(dataset, norms, queries, prefilter, k, metric, tile_size, chunk
         for t0 in range(0, n, tile_size):
             ids = torch.arange(t0, min(n, t0 + tile_size), device=dev)
             dist = _tile_distances(metric, qc, qn, dataset[t0:t0 + tile_size],
-                                   norms[t0:t0 + tile_size], compute_dtype, scale2)
+                                   norms[t0:t0 + tile_size], metric_arg, compute_dtype, scale2)
             order = dist if min_close else -dist
             mask = filt.passes(prefilter, qid[:, None], ids[None, :])
             if mask is not None:
@@ -204,4 +219,5 @@ def search(index: Index, queries, k: int, prefilter: Optional[filt.Prefilter] = 
         tile_size = min(index.size, budget_cols)
     tile_size = int(min(tile_size, max(128, index.size)))
     return _search_impl(index.dataset, index.norms, queries, prefilter, int(k), index.metric,
-                        tile_size, query_chunk, compute_dtype, recall_target, index.q_scale)
+                        float(index.metric_arg), tile_size, query_chunk, compute_dtype,
+                        recall_target, index.q_scale)

@@ -1,0 +1,425 @@
+"""CAGRA: fixed-degree graph ANN index — port of ``cuvs_tpu.neighbors.cagra``
+(part 1: the raw-storage index, its builds, search and extend).
+
+``cuvs::neighbors::cagra`` (cagra.hpp; build dispatch cagra_build.cuh:2206-2334;
+single-CTA search search_single_cta_jit.cuh:112-378). Defaults mirror the
+reference: intermediate_graph_degree=128, graph_degree=64, itopk_size=64,
+search_width=1, max_iterations auto.
+
+  * build = ``knn_graph`` (exact self-search, partitioned (exact within each
+    cluster), nn_descent or IVF-PQ + refine) followed by ``graph_core.optimize``.
+  * search = a beam search over a chunk of queries at a time, in PyTorch
+    operations: per query an itopk list sorted by distance (ids carry an
+    explored flag in bit 30), each step expands the ``search_width`` best
+    unexplored parents, dedups their children against the list, the visited
+    ring and each other by dense compares, scores them with one batched
+    product and merges them by a stable sort. The loop runs until no list
+    has an unexplored finite entry (one host sync per step) or the
+    iteration budget ends.
+  * filtering: filtered nodes route the search but are not returned.
+
+The random seeds of a search are drawn on the host from a ``torch.Generator``
+(the same ids on every device) and handed to ``_search_chunk``, so a test can
+feed it the reference's own draws. ``compress``, ``pack``, ``merge``,
+``build_ace`` and ``build_iterative`` are CAGRA part 2 (ROADMAP.md) and raise.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional, Tuple
+
+import torch
+
+from cuvs_tpu_torch.distance import pairwise
+from cuvs_tpu_torch.distance.pairwise import DistanceType, normalize_metric
+from cuvs_tpu_torch.neighbors import filters as filt
+from cuvs_tpu_torch.neighbors import graph_core, knn_graph
+from cuvs_tpu_torch.neighbors import ivf_pq as ivfpq
+from cuvs_tpu_torch.utils.device import as_tensor as _on_device
+from cuvs_tpu_torch.utils.tracing import traced
+
+EXPLORED = 1 << 30  # flag packed into the id payload of the itopk list
+_PART2 = "is CAGRA part 2 and not ported yet (ROADMAP.md Queue 1, CAGRA part 2)"
+
+
+@dataclasses.dataclass(frozen=True)
+class IndexParams:
+    """Mirrors cagra::index_params (cagra.hpp:149-255)."""
+
+    intermediate_graph_degree: int = 128
+    graph_degree: int = 64
+    metric: DistanceType = DistanceType.L2Expanded
+    build_algo: str = "auto"  # "auto" | "brute_force" | "partitioned" | "nn_descent" | "ivf_pq"
+    ivf_pq_params: Optional[ivfpq.IndexParams] = None
+    refine_ratio: float = 2.0
+    seed: int = 0
+    build_compute_dtype: object = None  # e.g. torch.bfloat16 operands in the graph build
+    build_recall_target: object = None  # accepted for parity; selection is exact
+    nn_descent_params: object = None  # override the nn_descent build config
+    storage_dtype: object = None  # store the dataset as e.g. bfloat16 (norms stay f32)
+    guarantee_connectivity: bool = False  # MST-style augmentation (graph_core.cuh:487-644)
+    build_n_probes: int = 0  # ivf_pq graph-build probes (0 = auto; from_hnsw_params sets it)
+
+    def __post_init__(self):
+        object.__setattr__(self, "metric", normalize_metric(self.metric))
+
+    @staticmethod
+    def from_hnsw_params(n_rows: int, dim: int, M: int, ef_construction: int,
+                         heuristic: str = "similar_search_performance",
+                         metric: DistanceType = DistanceType.L2Expanded) -> "IndexParams":
+        """Build params matching a target HNSW index (cagra.hpp:118-147,
+        heuristic bodies cagra.cpp:13-56): "similar_search_performance"
+        tunes the degrees to the HNSW's recall/QPS curve,
+        "same_graph_footprint" matches its size (graph_degree = 2M). Under 1M
+        rows the knn graph is built by nn-descent, above by IVF-PQ."""
+        h = heuristic.lower()
+        if h == "same_graph_footprint":
+            graph_degree, intermediate = 2 * M, 3 * M
+        elif h == "similar_search_performance":
+            graph_degree = 2 + 2 * M // 3
+            intermediate = M + M * ef_construction // 256
+        else:
+            raise ValueError(f"unknown heuristic {heuristic!r}")
+        intermediate = max(intermediate, graph_degree)
+        if n_rows < 1_000_000:
+            from cuvs_tpu_torch.neighbors import nn_descent as nnd
+
+            return IndexParams(
+                intermediate_graph_degree=intermediate, graph_degree=graph_degree,
+                metric=metric, build_algo="nn_descent",
+                nn_descent_params=nnd.IndexParams(
+                    graph_degree=intermediate,
+                    intermediate_graph_degree=max(2 * intermediate, 32),
+                    max_iterations=5 + ef_construction // 16))
+        n_lists = max(1, int(math.sqrt(n_rows)))
+        return IndexParams(
+            intermediate_graph_degree=intermediate, graph_degree=graph_degree, metric=metric,
+            build_algo="ivf_pq", ivf_pq_params=ivfpq.IndexParams(n_lists=n_lists, metric=metric),
+            build_n_probes=round(2 + math.sqrt(n_lists) / 20 + ef_construction / 16))
+
+
+@dataclasses.dataclass(frozen=True)
+class SearchParams:
+    """Mirrors cagra::search_params (cagra.hpp:280-355).
+
+    ``visited_size``: the visited ring (the analog of the reference's visited
+    hashmap, hashmap.hpp:23-60) holds the last expanded ids, which may not
+    re-enter the itopk list. 0 = auto (every expansion the iteration budget
+    allows, capped at 256), -1 = off (dedup against the itopk list only)."""
+
+    itopk_size: int = 64
+    search_width: int = 1
+    max_iterations: int = 0  # 0 = auto
+    num_random_samplings: int = 1
+    rand_xor_mask: int = 0x128394
+    compute_dtype: object = torch.float32
+    query_chunk: int = 1024
+    visited_size: int = 0
+
+
+@dataclasses.dataclass
+class Index:
+    dataset: torch.Tensor  # [n, d]
+    dataset_norms: torch.Tensor  # [n] squared L2 of the float32 rows
+    graph: torch.Tensor  # [n, graph_degree] int32
+    metric: DistanceType = DistanceType.L2Expanded
+
+    @property
+    def size(self) -> int:
+        return self.dataset.shape[0]
+
+    @property
+    def dim(self) -> int:
+        return self.dataset.shape[1]
+
+    @property
+    def graph_degree(self) -> int:
+        return self.graph.shape[1]
+
+    @property
+    def device(self) -> torch.device:
+        return self.dataset.device
+
+    @property
+    def data_pack(self):
+        return (self.dataset,)
+
+
+@traced("cagra::build")
+def build(dataset, params: Optional[IndexParams] = None, device=None, **kw) -> Index:
+    """knn graph -> optimize -> index (cagra_build.cuh:2206). Host data goes
+    to ``device`` (None: the CUDA card)."""
+    if params is None:
+        params = IndexParams(**kw)
+    dataset = _on_device(dataset, device)
+    n = dataset.shape[0]
+    ideg = min(params.intermediate_graph_degree, n - 1)
+    gdeg = min(params.graph_degree, ideg)
+    neighbors, _ = knn_graph.build_knn_graph(
+        dataset, ideg, metric=params.metric, algo=params.build_algo,
+        ivf_pq_params=params.ivf_pq_params, refine_ratio=params.refine_ratio, seed=params.seed,
+        compute_dtype=params.build_compute_dtype, recall_target=params.build_recall_target,
+        nn_descent_params=params.nn_descent_params, n_probes=params.build_n_probes)
+    graph = graph_core.optimize(
+        neighbors, gdeg, guarantee_connectivity=params.guarantee_connectivity,
+        dataset=dataset if params.guarantee_connectivity else None)
+    return from_graph(dataset, graph, metric=params.metric, storage_dtype=params.storage_dtype)
+
+
+def from_graph(dataset, graph, metric=DistanceType.L2Expanded, storage_dtype=None,
+               device=None) -> Index:
+    """Assemble an index from an existing graph (update_graph semantics). The
+    norms come from the float32 rows, before any ``storage_dtype`` cast."""
+    dataset = _on_device(dataset, device)
+    norms = pairwise.row_norms(dataset)
+    if storage_dtype is not None:
+        dataset = dataset.to(storage_dtype)
+    return Index(dataset=dataset, dataset_norms=norms,
+                 graph=_on_device(graph, dataset.device).to(torch.int32),
+                 metric=normalize_metric(metric))
+
+
+def _decode_rows(data_pack, ids):
+    """Rows for candidate ids (raw storage; the VPQ layout is CAGRA part 2)."""
+    return data_pack[0][ids]
+
+
+def _distances_to(data_pack, dataset_norms, q, qnorm, ids, metric, compute_dtype):
+    """Batched query -> node distances (min-space). q [B,d], ids [B,C] -> [B,C].
+    A bf16 ``compute_dtype`` rounds both operands and multiplies the rounded
+    values in float32 (pairwise._gemm's convention)."""
+    ids = ids.long()
+    vecs = _decode_rows(data_pack, ids).to(compute_dtype).float()  # [B, C, d]
+    dots = torch.bmm(vecs, q.to(compute_dtype).float()[:, :, None])[:, :, 0]
+    if metric == DistanceType.InnerProduct:
+        return -dots
+    return torch.clamp_min(qnorm[:, None] + dataset_norms[ids] - 2.0 * dots, 0.0)
+
+
+def _draw_seeds(n: int, B: int, n_seeds: int, seed: int, start: int) -> torch.Tensor:
+    """The random entry points [B, n_seeds] of the chunk at query ``start``:
+    drawn on the host from a generator seeded by (seed, start), so every
+    device searches from the same ids (the reference folds ``start`` into
+    its key, cagra.py:580)."""
+    gen = torch.Generator()
+    gen.manual_seed(((int(seed) & 0xFFFFFFFF) << 32) | int(start))
+    return torch.randint(0, n, (B, n_seeds), generator=gen, dtype=torch.int32)
+
+
+def _search_chunk(data_pack, dataset_norms, graph, queries, qids, prefilter, seeds, k: int,
+                  itopk: int, search_width: int, max_iter: int, vis_size: int, metric,
+                  compute_dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Beam search of one chunk of queries [B, d] from ``seeds`` [B, n_seeds].
+    Returns (distances [B, k], ids [B, k] int32)."""
+    dev = dataset_norms.device
+    n = dataset_norms.shape[0]
+    deg = graph.shape[1]
+    B = queries.shape[0]
+    L, W = itopk, search_width
+    C = W * deg  # candidates per iteration
+    brange = torch.arange(B, device=dev)[:, None]
+
+    qf = queries.float()
+    qnorm = (qf * qf).sum(1)
+    seeds = seeds.to(dev, torch.int32)
+    n_seeds = seeds.shape[1]
+    seed_d = _distances_to(data_pack, dataset_norms, queries, qnorm, seeds, metric,
+                           compute_dtype)
+    # identical seeds would be returned twice: every seed equal to an earlier one is +inf
+    earlier = torch.ones((n_seeds, n_seeds), dtype=torch.bool, device=dev).tril(-1)
+    s_dup = ((seeds[:, :, None] == seeds[:, None, :]) & earlier).any(2)
+    seed_d = torch.where(s_dup, float("inf"), seed_d)
+    # the itopk list stays sorted ascending; merges are stable key+payload sorts
+    sv, so = torch.sort(seed_d, dim=1, stable=True)
+    state_v, state_id = sv[:, :L], torch.gather(seeds, 1, so)[:, :L]
+    # visited ring: the last vis_size expanded ids; -2 never matches an id or -1
+    vis = torch.full((B, max(vis_size, 1)), -2, dtype=torch.int32, device=dev)
+    c_earlier = torch.ones((C, C), dtype=torch.bool, device=dev).tril(-1)
+    slots = torch.arange(W, device=dev)
+
+    def unexplored_finite(state_v, state_id):
+        return (state_id >= 0) & ((state_id & EXPLORED) == 0) & torch.isfinite(state_v)
+
+    it = 0
+    unexplored = unexplored_finite(state_v, state_id)
+    while it < max_iter and bool(unexplored.any()):
+        raw_id = state_id & (EXPLORED - 1)
+        # the W best unexplored parents: the first W unexplored slots (cumsum rank)
+        rank = torch.cumsum(unexplored.to(torch.int32), 1)
+        sel = unexplored & (rank <= W)
+        slot = torch.where(sel, rank - 1, W).long()
+        parent_ids = torch.full((B, W + 1), -1, dtype=torch.int32, device=dev).scatter_(
+            1, slot, torch.where(sel, raw_id, -1))[:, :W]
+        parent_valid = parent_ids >= 0
+        state_id = torch.where(sel, state_id | EXPLORED, state_id)
+        if vis_size > 0:
+            pos = (it * W + slots) % vis_size
+            vis[:, pos] = torch.where(parent_valid, parent_ids, -2)
+
+        children = graph[torch.where(parent_valid, parent_ids, 0).long()].reshape(B, C)
+        children = torch.where(parent_valid.repeat_interleave(deg, 1), children, -1)
+        # dedup against the itopk list, the visited ring and earlier candidates
+        invalid = (children < 0) | (children[:, :, None] == raw_id[:, None, :]).any(2)
+        invalid |= ((children[:, :, None] == children[:, None, :]) & c_earlier).any(2)
+        if vis_size > 0:
+            invalid |= (children[:, :, None] == vis[:, None, :]).any(2)
+        cand_d = _distances_to(data_pack, dataset_norms, queries, qnorm,
+                               torch.clamp_min(children, 0), metric, compute_dtype)
+        cand_d = torch.where(invalid, float("inf"), cand_d)
+
+        mv, order = torch.sort(torch.cat([state_v, cand_d], 1), dim=1, stable=True)
+        mid = torch.gather(torch.cat([state_id, children], 1), 1, order)
+        state_v, state_id = mv[:, :L], mid[:, :L]
+        it += 1
+        unexplored = unexplored_finite(state_v, state_id)
+
+    raw_id = state_id & (EXPLORED - 1)
+    out_v = torch.where(state_id >= 0, state_v, float("inf"))
+    mask = filt.passes(prefilter, qids[:, None], torch.clamp(raw_id, 0, n - 1))
+    if mask is None:  # the list is already sorted
+        out_ids, out_d = raw_id[:, :k], out_v[:, :k]
+    else:
+        out_d, order = torch.sort(torch.where(mask, out_v, float("inf")), dim=1, stable=True)
+        out_ids, out_d = torch.gather(raw_id, 1, order)[:, :k], out_d[:, :k]
+    if metric == DistanceType.InnerProduct:
+        out_d = -out_d
+    if metric == DistanceType.L2SqrtExpanded:
+        out_d = torch.where(torch.isfinite(out_d), torch.sqrt(torch.clamp_min(out_d, 0.0)), out_d)
+    return out_d, out_ids
+
+
+def _plan(params: SearchParams, k: int) -> Tuple[int, int, int]:
+    """(itopk, max_iter, vis_size) of a search (search_plan.cuh:113-260)."""
+    itopk = max(params.itopk_size, k)
+    max_iter = params.max_iterations or max(10, itopk // max(params.search_width, 1) + 10)
+    vis_size = params.visited_size or min(256, max(
+        32, 1 << (max_iter * params.search_width - 1).bit_length()))
+    if params.visited_size < 0:
+        vis_size = -1
+    return itopk, max_iter, vis_size
+
+
+@traced("cagra::search")
+def search(index: Index, queries, k: int, params: Optional[SearchParams] = None,
+           prefilter: Optional[filt.Prefilter] = None, seed: int = 0, **kw
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Greedy beam search (search_single_cta_jit.cuh analog). Returns
+    (distances [nq, k], neighbors [nq, k] int32). Queries follow the index."""
+    if params is None:
+        params = SearchParams(**kw)
+    if prefilter is None:
+        prefilter = filt.no_filter()
+    queries = torch.as_tensor(queries, device=index.device)
+    nq = queries.shape[0]
+    itopk, max_iter, vis_size = _plan(params, k)
+    n_seeds = max(itopk, params.num_random_samplings * itopk)
+    chunk = int(min(params.query_chunk, max(1, nq)))
+    outs_d, outs_i = [], []
+    for s in range(0, nq, chunk):
+        q = queries[s:s + chunk]
+        qids = torch.arange(s, s + q.shape[0], device=index.device)
+        d, i = _search_chunk(index.data_pack, index.dataset_norms, index.graph, q, qids,
+                             prefilter, _draw_seeds(index.size, q.shape[0], n_seeds, seed, s),
+                             int(k), int(itopk), int(params.search_width), int(max_iter),
+                             int(vis_size), index.metric, params.compute_dtype)
+        outs_d.append(d)
+        outs_i.append(i)
+    return torch.cat(outs_d), torch.cat(outs_i)
+
+
+def _rank_insert_reverse(graph, dataset_f32, rows, ins_ids, ins_valid, metric=DistanceType.L2Expanded):
+    """Rank-based reverse-edge insertion (add_nodes.cuh:24-96 semantics).
+
+    For each affected row t (``rows``, each with up to max_ins candidate
+    inserts): the distances of t's current edges and of the candidates are
+    recomputed, the combined list sorted by the index metric and the best
+    ``degree`` kept — a new node displaces an edge only when it ranks above
+    it."""
+    deg = graph.shape[1]
+    rows = rows.long()
+    tvec = dataset_f32[rows]  # [R, d]
+    cur = graph[rows]  # [R, deg]
+    cand = torch.cat([cur, torch.where(ins_valid, ins_ids, 0).to(cur.dtype)], 1)
+    cvec = dataset_f32[cand.long()]  # [R, deg+max_ins, d]
+    if metric == DistanceType.InnerProduct:
+        d2 = -torch.einsum("rcd,rd->rc", cvec, tvec)  # min-space IP rank
+    else:
+        d2 = ((cvec - tvec[:, None, :]) ** 2).sum(2)
+    # invalid inserts and duplicate candidates rank last
+    valid = torch.cat([torch.ones_like(cur, dtype=torch.bool), ins_valid], 1)
+    Cn = cand.shape[1]
+    earlier = torch.ones((Cn, Cn), dtype=torch.bool, device=cand.device).tril(-1)
+    dup = ((cand[:, :, None] == cand[:, None, :]) & earlier).any(2)
+    d2 = torch.where(valid & ~dup, d2, float("inf"))
+    order = torch.argsort(d2, dim=1, stable=True)[:, :deg]
+    return torch.gather(cand, 1, order)
+
+
+def extend(index: Index, new_vectors, params: Optional[SearchParams] = None) -> Index:
+    """Incremental insert (add_nodes.cuh:24 semantics).
+
+    Each new node CAGRA-searches 2*degree neighbours and keeps the best
+    ``degree`` as forward edges; it is then offered as a reverse edge to all
+    of them, and each target row takes its offers by distance rank against
+    its existing edges (at most 8 offers a row), so repeated extends keep
+    edge quality instead of eroding the tail slots."""
+    new_vectors = _on_device(new_vectors, index.device).to(index.dataset.dtype)
+    deg = index.graph_degree
+    n_old = index.size
+    dev = index.device
+    _, nbrs = search(index, new_vectors.float(), min(2 * deg, n_old), params)
+    fwd = nbrs[:, :deg].to(torch.int32)
+    n_new = new_vectors.shape[0]
+    new_ids = torch.arange(n_old, n_old + n_new, dtype=torch.int32, device=dev)
+    dataset = torch.cat([index.dataset, new_vectors])
+
+    # offers grouped per target row (stable), slotted by their rank in the group
+    pairs_t = fwd.reshape(-1)
+    pairs_u = new_ids.repeat_interleave(deg)
+    rows, inv = torch.unique(pairs_t, sorted=True, return_inverse=True)
+    order = torch.argsort(inv, stable=True)
+    inv_s = inv[order]
+    first = torch.ones_like(inv_s, dtype=torch.bool)
+    first[1:] = inv_s[1:] != inv_s[:-1]
+    idx = torch.arange(inv_s.shape[0], device=dev)
+    group_start = torch.cummax(torch.where(first, idx, 0), 0).values
+    slot = idx - group_start
+    max_ins = min(8, int(slot.max()) + 1)
+    keep = slot < max_ins
+    R = rows.shape[0]
+    ins_ids = torch.zeros((R, max_ins), dtype=torch.int32, device=dev)
+    ins_valid = torch.zeros((R, max_ins), dtype=torch.bool, device=dev)
+    ins_ids[inv_s[keep], slot[keep]] = pairs_u[order][keep]
+    ins_valid[inv_s[keep], slot[keep]] = True
+
+    graph_old = index.graph.clone()
+    graph_old[rows.long()] = _rank_insert_reverse(graph_old, dataset.float(), rows, ins_ids,
+                                                  ins_valid, index.metric)
+    return from_graph(dataset, torch.cat([graph_old, fwd]), metric=index.metric)
+
+
+def compress(index: Index, *args, **kw):
+    """VPQ-compressed storage (cagra_build.cuh:2311)."""
+    raise NotImplementedError(f"cagra.compress {_PART2}")
+
+
+def pack(index: Index, *args, **kw):
+    """The packed serving layout."""
+    raise NotImplementedError(f"cagra.pack {_PART2}")
+
+
+def merge(indexes, *args, **kw):
+    """Merge CAGRA indexes (cagra.hpp:2477-2501)."""
+    raise NotImplementedError(f"cagra.merge {_PART2}")
+
+
+def build_ace(dataset, *args, **kw):
+    """ACE partitioned build (cagra_build.cuh:77-1028)."""
+    raise NotImplementedError(f"cagra.build_ace {_PART2}")
+
+
+def build_iterative(dataset, *args, **kw):
+    """Iterative build (cagra_build.cuh:2015)."""
+    raise NotImplementedError(f"cagra.build_iterative {_PART2}")

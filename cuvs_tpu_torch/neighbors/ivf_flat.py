@@ -406,7 +406,8 @@ def _search_impl(index: Index, queries, prefilter, k, n_probes, metric, compute_
             data_f = data_w[..., :d].float()
             if index.q_scale is not None:
                 data_f = data_f * index.q_scale
-            return torch.stack([metric(qf[i:i + 1], data_f[i])[0] for i in range(nq)]).float()
+            # per-query fn(q [1, d], rows [W, d]) -> [1, W], vmapped over the batch
+            return torch.func.vmap(lambda qq, yy: metric(qq[None, :], yy)[0])(qf, data_f).float()
         norm_w = ivf.window_gather(index.sorted_norms, starts, window)
         if scale2 is not None:
             dots = torch.bmm(data_w.float(), qc.float()[:, :, None])[:, :, 0] * scale2

@@ -62,10 +62,12 @@ class SearchParams:
     """Mirrors ivf_rabitq::search_params (ivf_rabitq.hpp:95-107).
 
     ``compute_dtype`` is the query-major scan's product type. ``scan_algo``:
-    "auto" | "query_major" | "fused". "fused" runs the fused quantized-code
-    scan kernel (L2/IP, bits <= 8; otherwise query_major). "auto" picks fused
-    for large batches (nq * n_probes >= 4 * n_lists) on a CUDA device,
-    query_major otherwise. ``recall_target`` is accepted for parity;
+    "auto" | "query_major" | "cluster_major" | "fused". "fused" runs the fused
+    quantized-code scan kernel (L2/IP, bits <= 8; otherwise query_major).
+    "auto" picks fused for large batches (nq * n_probes >= 4 * n_lists) on a
+    CUDA device, query_major otherwise. RaBitQ has no unfused cluster-major
+    scan: "cluster_major" runs query_major, as in the reference
+    (ivf_rabitq.py:326-334). ``recall_target`` is accepted for parity;
     selection is exact."""
 
     n_probes: int = 20
@@ -261,8 +263,8 @@ def search(index: Index, queries, k: int, params: Optional[SearchParams] = None,
     nq = queries.shape[0]
     n_probes = min(params.n_probes, index.n_lists)
     algo = params.scan_algo
-    if algo not in ("auto", "query_major", "fused"):
-        raise ValueError(f"scan_algo {algo!r}: the port has auto, query_major and fused")
+    if algo not in ("auto", "query_major", "cluster_major", "fused"):
+        raise ValueError(f"scan_algo {algo!r}: auto, query_major, cluster_major or fused")
     fused_ok = index.sorted_codes_t is not None and index.metric in _FUSED_METRICS
     if algo == "auto":
         big = nq * n_probes >= 4 * index.n_lists

@@ -39,6 +39,8 @@ _STATICS = {
 _WORDS = (".sorted_codes", ".sorted_codes_t")  # int32 code words of these two kinds
 _WORD_KINDS = ("ivf_pq", "ivf_rabitq")
 _CAGRA = ("cagra", "cagra.CompressedIndex", "cagra.PackedIndex")
+_CAGRA_LATER = ("{} index files are CAGRA part 2 and not ported yet "
+                "(ROADMAP.md Queue 1, CAGRA part 2)")
 
 
 def kind_of(index) -> str:
@@ -72,6 +74,8 @@ def _arrays_of(index, kind: str) -> Dict[str, np.ndarray]:
 def save(path: str, index: Any) -> None:
     """Write an index to ``path`` (an npz container)."""
     kind = kind_of(index)
+    if kind in _CAGRA:
+        raise NotImplementedError(_CAGRA_LATER.format(kind))
     if kind not in _STATICS:
         raise ValueError(f"cannot save an index of kind {kind!r}")
     statics = {}
@@ -121,7 +125,7 @@ def _build(kind: str, a: Dict[str, np.ndarray], s: Dict[str, Any], device):
             s["metric"], s["window"], s["n_rows"], s["bits_per_dim"], a.get(".sorted_codes_t"),
             device=device)
     if kind in _CAGRA:
-        raise NotImplementedError(f"{kind} indexes are not ported yet (ROADMAP.md Queue 1 #5)")
+        raise NotImplementedError(_CAGRA_LATER.format(kind))
     raise ValueError(f"unknown index kind {kind!r}")
 
 

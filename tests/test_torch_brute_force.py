@@ -143,3 +143,52 @@ def test_metric_udf_matches_reference():
     td, ti = brute_force.search(_carried(jidx), torch.from_numpy(q), 4, tile_size=300)
     np.testing.assert_allclose(td.numpy(), np.asarray(jd), **TOL)
     ids_match_modulo_ties(ti.numpy(), np.asarray(ji), np.asarray(jd))
+
+
+_LONG_TAIL = ["l1", "chebyshev", "canberra", "minkowski", "hamming", "braycurtis",
+              "jensenshannon", "kl_divergence", "L2Unexpanded", "L2SqrtUnexpanded",
+              "haversine", "bitwise_hamming"]
+
+
+def _long_tail_data(metric, rng):
+    if metric == "bitwise_hamming":
+        return (rng.integers(0, 256, (600, 8)).astype(np.uint8),
+                rng.integers(0, 256, (12, 8)).astype(np.uint8))
+    if metric == "haversine":
+        scale = np.array([np.pi, 2 * np.pi], np.float32)
+        return ((rng.random((600, 2), np.float32) - 0.5) * scale,
+                (rng.random((12, 2), np.float32) - 0.5) * scale)
+    if metric == "hamming":
+        return ((rng.random((600, 16)) > 0.5).astype(np.float32),
+                (rng.random((12, 16)) > 0.5).astype(np.float32))
+    x, q = rng.random((600, 16), np.float32) + 0.01, rng.random((12, 16), np.float32) + 0.01
+    return x / x.sum(1, keepdims=True), q / q.sum(1, keepdims=True)
+
+
+@pytest.mark.parametrize("metric", _LONG_TAIL)
+@pytest.mark.parametrize("tile_size", [None, 250])  # one block / a merge over tiles
+def test_long_tail_search_matches_reference(metric, tile_size):
+    rng = np.random.default_rng(8)
+    x, q = _long_tail_data(metric, rng)
+    jidx = jax_bf.build(x, metric=metric, metric_arg=3.0)
+    jd, ji = jax_bf.search(jidx, q, 7, tile_size=tile_size)
+    tidx = brute_force.build(torch.from_numpy(x), metric=metric, metric_arg=3.0)
+    td, ti = brute_force.search(tidx, torch.from_numpy(q), 7, tile_size=tile_size)
+    np.testing.assert_allclose(td.numpy(), np.asarray(jd), rtol=1e-5, atol=1e-5)
+    ids_match_modulo_ties(ti.numpy(), np.asarray(ji), np.asarray(jd), 1e-5, 1e-5)
+
+
+@pytest.mark.parametrize("metric", ["correlation", "hellinger", "russellrao", "jaccard", "dice"])
+def test_other_expanded_metrics_rank_by_pairwise_distance(metric):
+    # the reference's brute force raises on these (its pointwise block has no
+    # case for them); the port ranks them by pairwise_distance
+    from cuvs_tpu_torch.distance.pairwise import pairwise_distance
+
+    rng = np.random.default_rng(9)
+    x, q = rng.random((500, 12), np.float32), rng.random((9, 12), np.float32)
+    td, ti = brute_force.search(brute_force.build(torch.from_numpy(x), metric=metric),
+                                torch.from_numpy(q), 6, tile_size=200)
+    full = pairwise_distance(torch.from_numpy(q), torch.from_numpy(x), metric=metric).numpy()
+    order = np.argsort(full, axis=1, kind="stable")[:, :6]
+    np.testing.assert_allclose(td.numpy(), np.take_along_axis(full, order, 1), rtol=1e-6)
+    ids_match_modulo_ties(ti.numpy(), order, np.take_along_axis(full, order, 1))

@@ -7,13 +7,23 @@ import torch
 
 from cuvs_tpu_torch import interop
 from cuvs_tpu_torch.cluster import kmeans_balanced
-from cuvs_tpu_torch.neighbors import brute_force, ivf_flat, ivf_pq, ivf_rabitq, ivf_sq, refine
+from cuvs_tpu_torch.distance import pairwise
+from cuvs_tpu_torch.neighbors import (all_neighbors, brute_force, cagra, graph_core, ivf_flat,
+                                      ivf_pq, ivf_rabitq, ivf_sq, knn_graph, nn_descent, refine)
 from cuvs_tpu_torch.preprocessing import quantize
 from cuvs_tpu_torch.utils import device as dev_mod
 
 torch.set_num_threads(1)
 
 _X = np.random.default_rng(0).standard_normal((256, 16)).astype(np.float32)
+# the exact 16-NN graph of _X without self: the graph functions' input
+_G = np.argsort(((_X[:, None] - _X[None]) ** 2).sum(-1), 1, kind="stable")[:, 1:17].astype(np.int32)
+
+
+def _like(x, a):
+    """``a`` as the same kind of data as ``x``: a CPU tensor or a numpy array."""
+    return torch.from_numpy(a) if isinstance(x, torch.Tensor) else a
+
 
 # entry point -> (call with the dataset and a device, the tensor its result lives in)
 _ENTRIES = {
@@ -35,6 +45,23 @@ _ENTRIES = {
     "kmeans_balanced.fit": lambda x, device: kmeans_balanced.fit(x, 4, device=device),
     "kmeans_balanced.predict": lambda x, device: kmeans_balanced.predict(x, x[:4],
                                                                          device=device),
+    "pairwise.pairwise_distance": lambda x, device: pairwise.pairwise_distance(
+        x, x[:4], metric="l1", device=device),
+    "graph_core.optimize": lambda x, device: graph_core.optimize(_like(x, _G), 8, device=device),
+    "graph_core.connected_components": lambda x, device: graph_core.connected_components(
+        _like(x, _G), device=device),
+    "graph_core.augment_connectivity": lambda x, device: graph_core.augment_connectivity(
+        _like(x, _G[:, :2]), dataset=x, device=device),
+    "knn_graph.build_knn_graph": lambda x, device: knn_graph.build_knn_graph(
+        x, 8, algo="brute_force", device=device)[0],
+    "all_neighbors.build": lambda x, device: all_neighbors.build(
+        x, 8, algo="brute_force", n_clusters=3, device=device)[0],
+    "nn_descent.build": lambda x, device: nn_descent.build(
+        x, graph_degree=8, intermediate_graph_degree=16, max_iterations=2, device=device)[0],
+    "cagra.build": lambda x, device: cagra.build(
+        x, intermediate_graph_degree=16, graph_degree=8, build_algo="brute_force",
+        device=device).graph,
+    "cagra.from_graph": lambda x, device: cagra.from_graph(x, _like(x, _G), device=device).graph,
 }
 
 
@@ -78,3 +105,7 @@ def test_interop_defaults_to_the_card(no_cuda):
     assert idx.dataset.device.type == "cpu" and idx.norms.device.type == "cpu"
     with pytest.raises(RuntimeError, match="CUDA"):
         interop.brute_force_index_from_numpy(_X, norms, None, "sqeuclidean")
+    idx = interop.cagra_index_from_numpy(_X, norms, _G, "sqeuclidean", device="cpu")
+    assert idx.dataset.device.type == "cpu" and idx.graph.device.type == "cpu"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        interop.cagra_index_from_numpy(_X, norms, _G, "sqeuclidean")

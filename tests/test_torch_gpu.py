@@ -550,3 +550,121 @@ def test_serialize_round_trip_on_the_card(cuda, tmp_path):
         assert loaded.centers.is_cuda
         (a, b), (c, e) = search(index), search(loaded)
         assert torch.equal(a, c) and torch.equal(b, e)
+
+
+def _cloud(seed, n, d):
+    return (np.random.default_rng(seed).standard_normal((n, d)) * 2).astype(np.float32)
+
+
+def test_graph_optimize_on_the_card_equals_the_cpu(cuda):
+    """Detour counts (at the card's own chunk size and a small one), the
+    prune, the reverse graph and the merge are exact integer work."""
+    from cuvs_tpu_torch.neighbors import graph_core, knn_graph
+
+    x = torch.from_numpy(_cloud(11, 6000, 32))
+    knn, _ = knn_graph.build_knn_graph(x, 48, algo="brute_force")
+    kc = knn.to(cuda)
+    for chunk in (0, 100):
+        assert torch.equal(graph_core._detour_counts(kc, chunk=chunk).cpu(),
+                           graph_core._detour_counts(knn, chunk=chunk))
+    assert torch.equal(graph_core.optimize(kc, 24).cpu(), graph_core.optimize(knn, 24))
+    g = graph_core.optimize(knn, 24)
+    assert torch.equal(graph_core.connected_components(g.to(cuda)).cpu(),
+                       graph_core.connected_components(g))
+
+
+def test_graph_functions_put_host_graphs_on_the_card(cuda):
+    """A numpy graph (and dataset) with no device named goes to the card, as
+    every entry point's host data does."""
+    from cuvs_tpu_torch.neighbors import graph_core, knn_graph
+
+    x = _cloud(17, 3000, 16)
+    x[1000:2000] += 40.0  # three blobs: the knn graph has three components
+    x[2000:] -= 40.0
+    knn = knn_graph.build_knn_graph(x, 16, algo="brute_force", device="cpu")[0].numpy()
+    lab = graph_core.connected_components(knn)
+    assert lab.is_cuda and torch.equal(lab.cpu(), graph_core.connected_components(
+        torch.from_numpy(knn)))
+    assert len(torch.unique(lab)) == 3
+    aug = graph_core.augment_connectivity(knn, dataset=x)
+    assert aug.is_cuda and torch.equal(aug.cpu(), graph_core.augment_connectivity(
+        torch.from_numpy(knn), dataset=torch.from_numpy(x)))
+    assert len(torch.unique(graph_core.connected_components(aug))) == 1
+
+
+@pytest.mark.parametrize("compute", [torch.float32, torch.bfloat16])
+def test_cagra_search_on_the_card_matches_the_cpu(cuda, compute):
+    """The same index and the same seeds (drawn on the host): the card's ids
+    equal the CPU's but for near-ties that steer a beam elsewhere (<= 1%),
+    and their distances agree where the ids do."""
+    from cuvs_tpu_torch.neighbors import cagra
+
+    x, q = _cloud(12, 8000, 32), _cloud(13, 300, 32)
+    host = cagra.build(x, intermediate_graph_degree=48, graph_degree=24, seed=0, device="cpu")
+    card = cagra.Index(dataset=host.dataset.to(cuda), dataset_norms=host.dataset_norms.to(cuda),
+                       graph=host.graph.to(cuda), metric=host.metric)
+    for width, ring in ((1, 0), (2, -1)):
+        kw = dict(itopk_size=64, search_width=width, visited_size=ring, compute_dtype=compute,
+                  query_chunk=128, seed=7)
+        hd, hi = cagra.search(host, torch.from_numpy(q), 10, **kw)
+        cd, ci = cagra.search(card, torch.from_numpy(q).to(cuda), 10, **kw)
+        same = ci.cpu() == hi
+        assert float(same.float().mean()) >= 0.99
+        torch.testing.assert_close(cd.cpu()[same], hd[same], rtol=RTOL, atol=ATOL)
+
+
+def test_cagra_build_on_the_card_is_valid(cuda):
+    from cuvs_tpu_torch.neighbors import cagra
+
+    x = torch.from_numpy(_cloud(14, 20000, 32)).to(cuda)
+    for algo in ("brute_force", "partitioned", "ivf_pq"):
+        g = cagra.build(x, intermediate_graph_degree=48, graph_degree=24, build_algo=algo,
+                        seed=0).graph
+        assert g.is_cuda and g.shape == (20000, 24)
+        assert bool(((g >= 0) & (g < 20000)).all())
+        s = torch.sort(g, 1).values
+        assert not bool((s[:, 1:] == s[:, :-1]).any())
+
+
+_METRICS = ["sqeuclidean", "euclidean", "cosine", "inner_product", "correlation", "l1",
+            "chebyshev", "canberra", "minkowski", "braycurtis", "L2Unexpanded",
+            "L2SqrtUnexpanded", "hellinger", "jensenshannon", "kl_divergence", "hamming",
+            "jaccard", "dice", "russellrao", "haversine", "bitwise_hamming"]
+
+
+@pytest.mark.parametrize("metric", _METRICS)
+def test_pairwise_distance_on_the_card_matches_the_cpu(cuda, metric):
+    from cuvs_tpu_torch.distance import pairwise
+
+    rng = np.random.default_rng(len(metric))
+    if metric == "bitwise_hamming":
+        a, b = (rng.integers(0, 256, (200, 64)).astype(np.uint8) for _ in "ab")
+    elif metric == "haversine":
+        a, b = (((rng.random((200, 2)) - 0.5) * [np.pi, 2 * np.pi]).astype(np.float32)
+                for _ in "ab")
+    elif metric in ("hellinger", "jensenshannon", "kl_divergence"):
+        a, b = (rng.random((200, 96)).astype(np.float32) + 0.01 for _ in "ab")
+        a, b = a / a.sum(1, keepdims=True), b / b.sum(1, keepdims=True)
+    elif metric in ("hamming", "jaccard", "dice", "russellrao"):
+        a, b = ((rng.random((200, 96)) > 0.5).astype(np.float32) for _ in "ab")
+    else:
+        a, b = (rng.standard_normal((200, 96)).astype(np.float32) for _ in "ab")
+    a, b = torch.from_numpy(a), torch.from_numpy(b)
+    host = pairwise.pairwise_distance(a, b, metric=metric, p=3.0)
+    card = pairwise.pairwise_distance(a.to(cuda), b.to(cuda), metric=metric, p=3.0)
+    assert card.is_cuda and card.dtype == torch.float32
+    torch.testing.assert_close(card.cpu(), host, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("metric", ["l1", "chebyshev", "minkowski"])
+def test_long_tail_brute_force_on_the_card_matches_the_cpu(cuda, metric):
+    from cuvs_tpu_torch.neighbors import brute_force
+    from torch_parity import ids_match_modulo_ties
+
+    x, q = torch.from_numpy(_cloud(15, 30000, 32)), torch.from_numpy(_cloud(16, 64, 32))
+    hd, hi = brute_force.search(brute_force.build(x, metric=metric, metric_arg=3.0), q, 10,
+                                tile_size=7000)
+    cd, ci = brute_force.search(brute_force.build(x.to(cuda), metric=metric, metric_arg=3.0),
+                                q.to(cuda), 10, tile_size=7000)
+    torch.testing.assert_close(cd.cpu(), hd, rtol=RTOL, atol=ATOL)
+    ids_match_modulo_ties(ci.cpu().numpy(), hi.numpy(), hd.numpy(), RTOL, ATOL)

@@ -174,5 +174,9 @@ def test_auto_picks_query_major_on_cpu_and_rejects_unported_algos(data, built):
     a = ivf_rabitq.search(j, torch.from_numpy(q), 5, n_probes=16)
     b = ivf_rabitq.search(j, torch.from_numpy(q), 5, n_probes=16, scan_algo="query_major")
     assert torch.equal(a[1], b[1])
+    # the reference runs the query-major scan for cluster_major (it has no
+    # unfused cluster-major RaBitQ scan); an unknown name is rejected
+    c = ivf_rabitq.search(j, torch.from_numpy(q), 5, n_probes=16, scan_algo="cluster_major")
+    assert torch.equal(c[0], b[0]) and torch.equal(c[1], b[1])
     with pytest.raises(ValueError):
-        ivf_rabitq.search(j, torch.from_numpy(q), 5, scan_algo="cluster_major")
+        ivf_rabitq.search(j, torch.from_numpy(q), 5, scan_algo="bogus")

@@ -177,7 +177,7 @@ def test_bad_headers_rejected(tmp_path, data):
     with pytest.raises(ValueError, match="expected"):
         serialize.load(path, expected_kind="cagra", device="cpu")
     for kind, version, err, match in (("brute_force", 999, ValueError, "version"),
-                                      ("cagra", 1, NotImplementedError, "Queue 1 #5"),
+                                      ("cagra", 1, NotImplementedError, "CAGRA part 2"),
                                       ("spam", 1, ValueError, "unknown")):
         hdr = {"magic": serialize.MAGIC, "version": version, "kind": kind, "statics": {},
                "arrays": []}
