@@ -79,7 +79,33 @@ same shape): 1,000,000 x 128 f32, 4096 queries, k = 10.
      held against ``torch.cdist`` + ``torch.topk`` (used only to check: ids
      equal except at ties, distances rtol 1e-5), ms per batch; and
      ``pairwise_distance`` for every metric on 512 x 512 x 128 on the card
-     against the same call on the CPU (rtol 1e-5, atol 1e-5).
+     against the same call on the CPU (rtol 1e-5, atol 1e-5);
+ 22. phase 18's index packed (int8 child vectors beside each node's links,
+     4 pieces of 16 neighbours at the default 2 GiB), searched at itopk 64
+     and 128 and 128 + refine (recall at most 0.05 below phase 19's; QPS
+     beside it), its median relative distance error against exact f32 ones
+     (< 0.02, or the int8 rounding's own figure where that is larger), and
+     packed again as one piece: the same ids, its QPS;
+ 23. phase 18's index VPQ-compressed (256 coarse centres, pq_dim 32 of 8
+     bits), searched at itopk 128 alone and + refine from 40 (at least 0.85);
+ 24. the composite of two exact brute-force halves (the exact kernel twice a
+     batch, its calls recorded apart): phase 2's ids but at ties; then
+     CAGRA's logical merge of two halves built 64 -> 32;
+ 25. ``build_ace`` (4 partitions, overlap 2, 64 -> 32, the graph spilled to a
+     memmap): a valid graph, its peak beside phase 18's, itopk 64;
+ 26. ``build_iterative`` on the first 100,000 rows (32/64, 3 rounds): recall
+     at least 0.50 against those rows' exact top-10; packed, its ids on the
+     card and on a CPU copy (>= 99% equal); it and phase 23's index saved and
+     loaded: searches bit-identical;
+ 27. Vamana at its defaults (R 32, L 64, alpha 1.2) on the first 250,000 rows
+     (the script's time limit): ids in [0, n) or -1, no self edge, search at
+     itopk 64 against those rows' exact top-10, DiskANN file round trip;
+ 28. HNSW from phase 18's index with levels linked on the card: level-1 links
+     equal the host's but at ties, and the loaded file searches exactly as
+     CAGRA over the same rows and graph;
+ 29. ScaNN (1024 lists, eta 2.0, lambda 1.5, pq_dim 64 of 8 bits, a bf16
+     copy): its seconds split, its peak under 16 GiB above what is held, no
+     SOAR label equal to its primary, the asset directory's round trip.
 
 Launch counters are zeroed just before that run and read just after; every
 kernel of the path must have launched. Then each kernel is held against its
@@ -91,7 +117,8 @@ lookup table within that tolerance except where an entry's lut/scale sits on
 a rounding boundary (<= 0.1% of entries). Each approximate phase's recall may
 be at most 0.005 below the recall of the same search run on the plain
 versions, and each refined phase's recall may not be below its unrefined
-phase's (the CAGRA searches run no kernel and are not rerun). Kernel and plain times are CUDA-event times of one call at the
+phase's (the CAGRA, Vamana and HNSW searches run no kernel and are not
+rerun). Kernel and plain times are CUDA-event times of one call at the
 path's shapes, after a warm-up call. Beside each: its bound (the least time
 the card could take: bytes over the memory rate or operations over the peak
 rate of their type, cuvs_tpu_torch/bench/roofline.py), its share of that
@@ -120,6 +147,10 @@ N, NQ, K, CAND = 1_000_000, 4096, 10, 40
 N_LISTS, N_PROBES = 1984, 64  # bench.py's n_lists rule at 1M rows
 Q_LISTS, Q_PROBES = 1024, 50  # IVF-PQ, IVF-RaBitQ, IVF-SQ (bench/configs/*.yaml base)
 N_FIRST, SLICE = 900_000, 100_000  # extend phases: build on the first rows; streaming slices
+SUB = 100_000  # the iterative CAGRA build's rows (phase 26)
+# the Vamana build's rows (phase 27): at 1M its 25 insert rounds took 58 s of a 423 s
+# script on an H100, over the script's 420 s budget
+VAMANA_ROWS = 250_000
 FLOAT_RTOL, FLOAT_ATOL, ID_MISMATCH = 1e-4, 1e-3, 1e-3
 RECALL_SLACK = 0.005
 
@@ -250,7 +281,8 @@ def compare_pools(kernel_out, plain_out, kind):
 @contextlib.contextmanager
 def timed_calls(targets, times):
     """Wrap each (module, function) so every call is timed to its end on the
-    card: times[name] = (seconds, last output), seconds summed over calls."""
+    card: times[name] = (seconds, last output, calls), seconds summed over
+    calls."""
     import torch
 
     saved = []
@@ -262,7 +294,8 @@ def timed_calls(targets, times):
             t0 = time.time()
             out = _fn(*args, **kw)
             torch.cuda.synchronize()
-            times[_name] = (times.get(_name, (0.0, None))[0] + time.time() - t0, out)
+            secs, _, count = times.get(_name, (0.0, None, 0))
+            times[_name] = (secs + time.time() - t0, out, count + 1)
             return out
 
         saved.append((mod, name, fn))
@@ -341,13 +374,18 @@ def main() -> int:
     sys.path.insert(0, HERE)
     from cuvs_tpu_torch.bench import datasets, roofline
     from cuvs_tpu_torch.bench.gt import exact_ground_truth, id_recall
+    import numpy as np
+
     from cuvs_tpu_torch.bench.measure import timed_qps
+    from cuvs_tpu_torch.cluster import kmeans_balanced
     from cuvs_tpu_torch.core import bitpack
     from cuvs_tpu_torch.distance import pairwise
-    from cuvs_tpu_torch.neighbors import (all_neighbors, brute_force, cagra, graph_core,
-                                          ivf_flat, ivf_pq, ivf_rabitq, ivf_sq, knn_graph, refine)
+    from cuvs_tpu_torch.neighbors import (all_neighbors, brute_force, cagra, composite,
+                                          graph_core, hnsw, ivf_flat, ivf_pq, ivf_rabitq, ivf_sq,
+                                          knn_graph, refine, scann, vamana)
     from cuvs_tpu_torch.neighbors import ivf_scan as nb_ivf_scan
     from cuvs_tpu_torch.ops import _lib, bf_topk, ivf_scan
+    from cuvs_tpu_torch.preprocessing import quantize
     from cuvs_tpu_torch.utils import serialize
 
     t_start = time.time()
@@ -392,7 +430,7 @@ def main() -> int:
             rec = id_recall(i.cpu(), gt)
             qps = timed_qps(fn, q, reps=5, min_time_s=1.0, max_reps=32)
             print(f"# {label}: recall@10={rec:.4f} qps={qps:.0f}")
-            results[label] = dict(fn=fn, recall=rec, qps=qps, gt=gt)
+            results[label] = dict(fn=fn, recall=rec, qps=qps, gt=gt, out=(d, i))
 
         # 2. exact fused brute force, f32 (the default fused search)
         phase("bf_fused_exact_f32", lambda qq: brute_force.search(bf, qq, K, fused=True))
@@ -584,8 +622,8 @@ def main() -> int:
         phase_peak("phases 1-17")
         cg_res = {}
 
-        def cagra_phase(label, fn):
-            phase(label, fn)
+        def cagra_phase(label, fn, gt=None):
+            phase(label, fn, gt)
             cg_res[label] = results.pop(label)  # no kernel: no plain-version rerun
 
         # 18. CAGRA build as bench.py:307-319 builds it: partitioned knn graph + optimize
@@ -619,6 +657,7 @@ def main() -> int:
               f"{assign.shape[1]} of {int(assign.max()) + 1} clusters {reach:.4f}; bf16 operands "
               f"over all rows {id_recall(exb, ex):.4f}")
         phase_peak("cagra build")
+        build_peak18 = peaks[-1]
         # 19. CAGRA search as bench.py:340-367 searches it
         cg_sp = {it: cagra.SearchParams(itopk_size=it, search_width=2,
                                         compute_dtype=torch.bfloat16, query_chunk=NQ)
@@ -708,6 +747,237 @@ def main() -> int:
               "(rtol 1e-5, atol 1e-5; largest shares of the tolerance: "
               + ", ".join(f"{m} {u:.3f}" for m, u in top) + ")")
         phase_peak("long-tail brute force")
+        # 22. packed CAGRA: phase 18's index, the child array in pieces of at most 2 GiB
+        t0 = time.time()
+        pk = cagra.pack(cg)
+        torch.cuda.synchronize()
+        child_bytes = sum(cv.numel() for cv in pk.child_vecs)
+        print(f"# cagra pack 128 -> 64 graph: {time.time() - t0:.2f} s, {len(pk.child_vecs)} pieces "
+              f"of {pk.child_vecs[0].shape[1]} neighbours, child array {child_bytes / 2**30:.2f} GiB")
+        check(len(pk.child_vecs) == 4, "packed CAGRA: not 4 pieces at the default 2 GiB")
+        for it in (64, 128):
+            cagra_phase(f"cagra_packed_itopk{it}",
+                        lambda qq, _sp=cg_sp[it]: cagra.search(pk, qq, K, _sp))
+            check(cg_res[f"cagra_packed_itopk{it}"]["recall"]
+                  >= cg_res[f"cagra_itopk{it}"]["recall"] - 0.05,
+                  f"packed CAGRA itopk {it}: recall more than 0.05 below phase 19's")
+            print(f"# cagra itopk {it}: packed {cg_res[f'cagra_packed_itopk{it}']['qps']:.0f} QPS "
+                  f"against the standard layout's {cg_res[f'cagra_itopk{it}']['qps']:.0f}")
+        cagra_phase("cagra_packed_itopk128_refine", lambda qq: refine.refine(
+            x, qq, cagra.search(pk, qq, CAND, cg_sp[128])[1], K, metric=ds.metric))
+        # distances against exact f32 ones (tests/test_cagra.py:228), in f32 compute; the int8
+        # rounding's own error: the packed formula |q|^2 + |x|^2 - 2 q.(x8 scale) in float64
+        d_pk, i_pk = cagra.search(pk, q, K, itopk_size=64, search_width=2, query_chunk=NQ)
+        rows_pk = i_pk.long()
+        true = ((q[:, None, :].double() - x[rows_pk].double()) ** 2).sum(-1)
+        x8 = pk.dataset_int8[rows_pk].double() * pk.scale.double()
+        packed = ((q.double() ** 2).sum(1)[:, None] + pk.dataset_norms[rows_pk].double()
+                  - 2.0 * (q[:, None, :].double() * x8).sum(-1))
+        rel = lambda d: float(((d.double() - true).abs() / true.clamp_min(1e-6)).median())  # noqa
+        rel_search, rel_round = rel(d_pk), rel(packed)
+        bound = 0.02 if rel_round <= 0.02 else rel_round * 1.01
+        print(f"# cagra packed: median relative distance error {rel_search:.5f} (the int8 rounding "
+              f"alone {rel_round:.5f}; held to {bound:.5f})")
+        check(rel_search < bound, "packed CAGRA: distances too far from the exact ones")
+        i_four = cagra.search(pk, q, K, cg_sp[64])[1]
+        del pk, d_pk, i_pk, rows_pk, true, x8, packed
+        pk1 = cagra.pack(cg, _piece_bytes=1 << 40)
+        check(len(pk1.child_vecs) == 1, "packed CAGRA: not one piece")
+        check(torch.equal(cagra.search(pk1, q, K, cg_sp[64])[1], i_four),
+              "packed CAGRA: one piece returns other ids than four")
+        cagra_phase("cagra_packed_one_piece_itopk64", lambda qq: cagra.search(pk1, qq, K, cg_sp[64]))
+        print(f"# cagra packed itopk 64: one piece {cg_res['cagra_packed_one_piece_itopk64']['qps']:.0f}"
+              f" QPS against four pieces' {cg_res['cagra_packed_itopk64']['qps']:.0f}; ids equal")
+        del pk1, i_four
+        phase_peak("packed cagra")
+        # 23. VPQ-compressed CAGRA: phase 18's index, 256 coarse centres, pq_dim 32 of 8 bits
+        t0 = time.time()
+        cgc = cagra.compress(cg, vq_n_centers=256, pq_dim=dim // 4, pq_bits=8, seed=0)
+        torch.cuda.synchronize()
+        code_bytes = cgc.vq_codes.numel() * 4 + cgc.pq_codes.numel()
+        raw_bytes = cg.dataset.numel() * cg.dataset.element_size()
+        print(f"# cagra compress: {time.time() - t0:.1f} s, codes {code_bytes / 2**20:.0f} MiB "
+              f"against raw rows {raw_bytes / 2**20:.0f} MiB")
+        cagra_phase("cagra_vpq_itopk128", lambda qq: cagra.search(cgc, qq, K, cg_sp[128]))
+        cagra_phase("cagra_vpq_itopk128_refine", lambda qq: refine.refine(
+            x, qq, cagra.search(cgc, qq, CAND, cg_sp[128])[1], K, metric=ds.metric))
+        print(f"# cagra vpq itopk 128: recall {cg_res['cagra_vpq_itopk128']['recall']:.4f} (the "
+              f"reference test's floor at its size 0.70; none here), + refine "
+              f"{cg_res['cagra_vpq_itopk128_refine']['recall']:.4f} (floor 0.85)")
+        check(cg_res["cagra_vpq_itopk128_refine"]["recall"] >= 0.85,
+              "VPQ CAGRA + refine below recall 0.85")
+        phase_peak("vpq cagra")
+        # 24. composite of two exact brute-force halves (the exact kernel, twice a batch), its
+        # calls recorded apart; then CAGRA's logical merge of two halves
+        half = n // 2
+        d2, i2 = results["bf_fused_exact_f32"]["out"]
+        with tagged("-composite"):
+            comp = composite.merge(brute_force, [brute_force.build(x[:half], metric=ds.metric),
+                                                 brute_force.build(x[half:], metric=ds.metric)],
+                                   strategy="logical")
+            before = bf_topk.LAUNCHES["bf_topk_exact"]
+            cd, ci = comp.search(q, K, fused=True)
+            torch.cuda.synchronize()
+            check(bf_topk.LAUNCHES["bf_topk_exact"] - before >= 2,
+                  "composite: fewer exact-kernel launches than children")
+            check_same_ranking(cd, ci, d2, i2, "composite of two halves against phase 2")
+            phase("composite_bf_exact_f32", lambda qq: comp.search(qq, K, fused=True))
+        print("# composite of two brute-force halves: ids equal phase 2's but at ties")
+        del cd, ci
+        t0 = time.time()
+        halves = [cagra.build(part, intermediate_graph_degree=64, graph_degree=32,
+                              build_algo="auto", metric=ds.metric, seed=0)
+                  for part in (x[:half], x[half:])]
+        cm = cagra.merge(halves, strategy="logical")
+        torch.cuda.synchronize()
+        print(f"# cagra halves 64 -> 32, built and merged: {time.time() - t0:.1f} s")
+        cagra_phase("cagra_merged_logical_itopk64",
+                    lambda qq: cm.search(qq, K, params=cg_sp[64]))
+        del halves, cm
+        phase_peak("composite and merge")
+        # 25. ACE: 4 partitions, overlap 2, 64 -> 32, the graph spilled to a .npy memmap
+        t0 = time.time()
+        with tempfile.TemporaryDirectory() as tmp:
+            ace = cagra.build_ace(x, cagra.AceParams(build_dir=tmp))
+            torch.cuda.synchronize()
+            spilled = os.path.getsize(os.path.join(tmp, "ace_graph.npy"))
+        print(f"# cagra build_ace 4 partitions 64 -> 32: {time.time() - t0:.1f} s, graph file "
+              f"{spilled / 2**20:.0f} MiB")
+        check(ace.graph.shape == (n, 32), "ace graph shape")
+        check_graph(ace.graph, n, "ace graph")
+        phase_peak("cagra build_ace")
+        print(f"# cagra build_ace peak {peaks[-1] / 2**30:.2f} GiB against phase 18's build "
+              f"{build_peak18 / 2**30:.2f} GiB")
+        cagra_phase("cagra_ace_itopk64", lambda qq: cagra.search(ace, qq, K, cg_sp[64]))
+        del ace
+        # 26. iterative build on the first SUB rows (3 rounds of self-search)
+        xs = x[:SUB]
+        gt_sub = brute_force.search(brute_force.build(xs, metric=ds.metric), q, K)[1].cpu().numpy()
+        t0 = time.time()
+        itx = cagra.build_iterative(xs, graph_degree=32, intermediate_graph_degree=64, n_rounds=3)
+        torch.cuda.synchronize()
+        print(f"# cagra build_iterative {SUB} rows 64 -> 32, 3 rounds: {time.time() - t0:.1f} s")
+        cagra_phase(f"cagra_iterative_{SUB // 1000}k_itopk128",
+                    lambda qq: cagra.search(itx, qq, K, cg_sp[128]), gt=gt_sub)
+        check(cg_res[f"cagra_iterative_{SUB // 1000}k_itopk128"]["recall"] >= 0.50,
+              "iterative CAGRA below recall 0.50")
+        pkx = cagra.pack(itx)
+        pkx_cpu = cagra.PackedIndex(
+            graph=pkx.graph.cpu(), child_vecs=tuple(cv.cpu() for cv in pkx.child_vecs),
+            child_norms=pkx.child_norms.cpu(), dataset_int8=pkx.dataset_int8.cpu(),
+            dataset_norms=pkx.dataset_norms.cpu(), scale=pkx.scale.cpu(), metric=pkx.metric)
+        _, i_card = cagra.search(pkx, q[:256], K, cg_sp[64])
+        _, i_host = cagra.search(pkx_cpu, q[:256].cpu(), K, cg_sp[64])
+        same = float((i_card.cpu() == i_host).float().mean())
+        print(f"# packed iterative CAGRA on the card and on a CPU copy, 256 queries, the same "
+              f"seeds: {same:.4f} of (query, rank) ids equal")
+        check(same >= 0.99, "packed CAGRA: the card's ids differ from the CPU's at more than 1%")
+        del pkx_cpu
+        with tempfile.TemporaryDirectory() as tmp:
+            for label, index in (("packed iterative", pkx), ("vpq", cgc)):
+                t0 = time.time()
+                path = os.path.join(tmp, "index.npz")
+                serialize.save(path, index)
+                loaded = serialize.load(path)
+                (a, b), (c, e) = (cagra.search(ix, q, K, cg_sp[64]) for ix in (index, loaded))
+                check(torch.equal(a, c) and torch.equal(b, e),
+                      f"cagra {label}: search differs after save and load")
+                print(f"# cagra {label}: save + load {os.path.getsize(path) / 2**20:.0f} MiB, "
+                      f"searches bit-identical ({time.time() - t0:.1f} s)")
+                del loaded
+        del itx, pkx, cgc, xs
+        phase_peak("iterative cagra")
+        # 27. Vamana at its defaults (R 32, L 64, alpha 1.2)
+        prunes = {}
+        t0 = time.time()
+        with timed_calls([(vamana, "_robust_prune")], prunes):
+            vm = vamana.build(x[:VAMANA_ROWS], metric=ds.metric)
+        torch.cuda.synchronize()
+        print(f"# vamana build {VAMANA_ROWS} rows R 32 L 64: {time.time() - t0:.1f} s "
+              f"(robust prune {prunes['_robust_prune'][0]:.1f} s), {prunes['_robust_prune'][2]} "
+              "insert rounds")
+        g = vm.graph
+        check(bool(((g >= -1) & (g < VAMANA_ROWS)).all()), "vamana graph: ids outside [0, n) or -1")
+        check(not bool((g == torch.arange(VAMANA_ROWS, device=dev)[:, None]).any()),
+              "vamana graph: self edges")
+        gt_v = brute_force.search(brute_force.build(x[:VAMANA_ROWS], metric=ds.metric), q,
+                                  K)[1].cpu().numpy()
+        cagra_phase("vamana_itopk64", lambda qq: vamana.search(vm, qq, K, params=cg_sp[64]),
+                    gt=gt_v)
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "vamana.diskann")
+            t0 = time.time()
+            vamana.serialize(vm, path)
+            back = vamana.deserialize(path, x[:VAMANA_ROWS], metric=ds.metric)
+            check(back.medoid == vm.medoid and torch.equal(back.graph, vm.graph),
+                  "vamana: graph or medoid differs after serialize and deserialize")
+            print(f"# vamana DiskANN file {os.path.getsize(path) / 2**20:.0f} MiB: serialize + "
+                  f"deserialize {time.time() - t0:.1f} s, graph and medoid equal")
+        del vm, back, g
+        phase_peak("vamana")
+        # 28. HNSW from phase 18's index, levels linked on the card
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "index.hnsw")
+            t0 = time.time()
+            hnsw.from_cagra(cg, path, hnsw.HnswParams(hierarchy="tpu"))
+            print(f"# hnsw from_cagra, device hierarchy: {time.time() - t0:.1f} s, "
+                  f"{os.path.getsize(path) / 2**20:.0f} MiB")
+            levels, maxlevel, enter, links = hnsw.read_hierarchy(path)
+            nodes = np.where(levels >= 1)[0]
+            m = (cg.graph_degree + 1) // 2
+            xh = cg.dataset.float().cpu().numpy()
+            host = nodes[hnsw._level_knn_host(xh[nodes], min(m, len(nodes) - 1))]
+            differ = 0
+            for row, node in enumerate(nodes):
+                ln = links[(int(node), 1)]
+                if not np.array_equal(ln, host[row]):
+                    dd = lambda ids: ((xh[ids] - xh[node]) ** 2).sum(1)  # noqa: E731
+                    check(np.allclose(np.sort(dd(ln)), np.sort(dd(host[row])), rtol=1e-5),
+                          f"hnsw: level-1 links of node {node} differ from the host's beyond ties")
+                    differ += 1
+            print(f"# hnsw: {len(nodes)} nodes on level 1 of {maxlevel}; their links equal the "
+                  f"host's but at ties ({differ} rows reordered)")
+            t0 = time.time()
+            loaded = hnsw.load(path, metric=ds.metric)
+            print(f"# hnsw load: {time.time() - t0:.1f} s")
+        ref = cagra.from_graph(x, cg.graph, metric=ds.metric)
+        (a, b), (c, e) = (hnsw.search(loaded, q, K, ef=64, query_chunk=NQ),
+                          cagra.search(ref, q, K, itopk_size=64, query_chunk=NQ))
+        check(torch.equal(a, c) and torch.equal(b, e),
+              "hnsw: the loaded file searches otherwise than cagra over the same graph")
+        cagra_phase("hnsw_ef64", lambda qq: hnsw.search(loaded, qq, K, ef=64, query_chunk=NQ))
+        del loaded, ref, xh
+        phase_peak("hnsw")
+        # 29. ScaNN: 1024 lists, eta 2.0, lambda 1.5, pq_dim 64 of 8 bits, a bf16 dataset copy
+        split29 = {}
+        held29 = torch.cuda.memory_allocated(dev)
+        t0 = time.time()
+        with timed_calls([(kmeans_balanced, "fit"), (kmeans_balanced, "predict"),
+                          (scann, "_avq_refine"), (scann, "_soar_assign"),
+                          (quantize, "pq_train"), (quantize, "pq_transform")], split29):
+            sc = scann.build(x, n_lists=Q_LISTS, partitioning_eta=2.0, soar_lambda=1.5,
+                             pq_dim=64, pq_bits=8, reordering_bf16=True, metric=ds.metric, seed=0)
+        torch.cuda.synchronize()
+        sec = {key: v[0] for key, v in split29.items()}
+        print(f"# scann build: {time.time() - t0:.1f} s (k-means {sec['fit']:.1f} + predict "
+              f"{sec['predict']:.1f}; AVQ {sec['_avq_refine']:.1f}; SOAR {sec['_soar_assign']:.1f};"
+              f" PQ train {sec['pq_train']:.1f} + encode {sec['pq_transform']:.1f})")
+        check(not bool((sc.soar_labels == sc.labels).any()), "scann: a SOAR label equals its primary")
+        scann_peak = (torch.cuda.max_memory_allocated(dev) - held29) / 2**30
+        print(f"# scann build: peak {scann_peak:.2f} GiB above the {held29 / 2**30:.2f} GiB held")
+        check(scann_peak < 16.0, "scann build: more than 16 GiB above what earlier phases hold")
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.time()
+            scann.serialize(sc, tmp)
+            back = scann.deserialize(tmp)
+            for name in ("centers", "labels", "soar_labels", "codes", "pq_codebooks", "codes_soar",
+                         "bf16_dataset"):
+                check(torch.equal(getattr(back, name), getattr(sc, name)),
+                      f"scann: {name} differs after serialize and deserialize")
+            print(f"# scann assets: serialize + deserialize {time.time() - t0:.1f} s, every array "
+                  "equal")
+        del sc, back
+        phase_peak("scann")
     torch.cuda.synchronize()
     peak = max(*peaks, torch.cuda.max_memory_allocated(dev))
     print(f"# peak device memory: {peak / 2**30:.2f} GiB")

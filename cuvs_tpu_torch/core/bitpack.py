@@ -16,6 +16,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from cuvs_tpu_torch.utils.device import as_tensor as _on_device
+from cuvs_tpu_torch.utils.device import resolve_device
+
 WORD = 32
 _U32_MASK = 0xFFFFFFFF
 
@@ -30,11 +33,14 @@ def packed_bytes(n_codes: int, bits: int) -> int:
     return packed_words(n_codes, bits) * 4
 
 
-def _as_unsigned(words) -> torch.Tensor:
+def _as_unsigned(words, device=None) -> torch.Tensor:
     """Words (int32 bit patterns, uint32 tensor or numpy array) as their
-    unsigned values in int64."""
+    unsigned values in int64. Host words go to ``device`` (None: the card)."""
     if not isinstance(words, torch.Tensor):
-        words = torch.from_numpy(np.array(words, np.uint32).view(np.int32))
+        words = torch.from_numpy(np.array(words, np.uint32).view(np.int32)).to(
+            resolve_device(device))
+    elif device is not None:
+        words = words.to(device)
     if words.dtype == torch.uint32:
         words = words.view(torch.int32)
     return words.to(torch.int64) & _U32_MASK
@@ -50,11 +56,12 @@ def _positions(n_codes: int, bits: int, device):
     return lo // WORD, lo % WORD
 
 
-def pack(codes, bits: int) -> torch.Tensor:
-    """Pack integer codes [..., S] (each < 2**bits) into [..., W] int32 words."""
+def pack(codes, bits: int, device=None) -> torch.Tensor:
+    """Pack integer codes [..., S] (each < 2**bits) into [..., W] int32 words.
+    Host codes go to ``device`` (None: the CUDA card)."""
     if not 1 <= bits <= 32:
         raise ValueError("bits must be in [1, 32]")
-    c = torch.as_tensor(codes).to(torch.int64) & ((1 << bits) - 1)
+    c = _on_device(codes, device).to(torch.int64) & ((1 << bits) - 1)
     S = c.shape[-1]
     w0, sh = _positions(S, bits, c.device)
     out = torch.zeros(c.shape[:-1] + (packed_words(S, bits),), dtype=torch.int64,
@@ -68,9 +75,10 @@ def pack(codes, bits: int) -> torch.Tensor:
     return _to_words(out)
 
 
-def unpack(packed, bits: int, n_codes: int) -> torch.Tensor:
-    """Unpack [..., W] words into int32 codes [..., n_codes]."""
-    p = _as_unsigned(packed)
+def unpack(packed, bits: int, n_codes: int, device=None) -> torch.Tensor:
+    """Unpack [..., W] words into int32 codes [..., n_codes]. Host words go to
+    ``device`` (None: the CUDA card)."""
+    p = _as_unsigned(packed, device)
     w0, sh = _positions(n_codes, bits, p.device)
     v = p[..., w0] >> sh
     spill = sh + bits > WORD

@@ -13,6 +13,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from cuvs_tpu_torch.utils.device import as_tensor as _on_device
+from cuvs_tpu_torch.utils.device import resolve_device
+
 BITS = 32
 
 
@@ -28,14 +31,16 @@ def as_words(bits) -> torch.Tensor:
 
 
 def bitset_create(n_bits: int, default: bool = True, device=None) -> torch.Tensor:
-    """A bitset covering ``n_bits`` samples, all set or all cleared."""
+    """A bitset covering ``n_bits`` samples, all set or all cleared, on
+    ``device`` (None: the CUDA card)."""
     return torch.full((num_words(n_bits),), -1 if default else 0, dtype=torch.int32,
-                      device=device)
+                      device=resolve_device(device))
 
 
-def bitset_from_mask(mask) -> torch.Tensor:
-    """Pack a boolean [..., n] mask into [..., ceil(n/32)] int32 words."""
-    mask = torch.as_tensor(mask, dtype=torch.bool)
+def bitset_from_mask(mask, device=None) -> torch.Tensor:
+    """Pack a boolean [..., n] mask into [..., ceil(n/32)] int32 words. A
+    host mask goes to ``device`` (None: the CUDA card)."""
+    mask = _on_device(mask, device).to(torch.bool)
     n = mask.shape[-1]
     pad = (-n) % BITS
     m = torch.nn.functional.pad(mask.to(torch.int64), (0, pad))
@@ -74,9 +79,9 @@ def bitset_count(bitset: torch.Tensor, n_bits: int) -> torch.Tensor:
     return bitset_to_mask(bitset, n_bits).sum()
 
 
-def bitmap_from_mask(mask) -> torch.Tensor:
+def bitmap_from_mask(mask, device=None) -> torch.Tensor:
     """Pack a boolean [n_queries, n] mask into [n_queries, ceil(n/32)]."""
-    return bitset_from_mask(mask)
+    return bitset_from_mask(mask, device)
 
 
 def bitmap_test(bitmap: torch.Tensor, query_ids, ids) -> torch.Tensor:

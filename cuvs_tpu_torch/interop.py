@@ -16,7 +16,7 @@ import torch
 
 from cuvs_tpu_torch.distance.pairwise import normalize_metric
 from cuvs_tpu_torch.neighbors import (brute_force, cagra, ivf_common, ivf_flat, ivf_pq, ivf_rabitq,
-                                      ivf_sq)
+                                      ivf_sq, scann, vamana)
 from cuvs_tpu_torch.utils.device import resolve_device
 
 
@@ -135,3 +135,58 @@ def cagra_index_from_numpy(dataset, dataset_norms, graph, metric, device=None) -
     return cagra.Index(dataset=_tensor(dataset, device),
                        dataset_norms=_tensor(dataset_norms, device, torch.float32),
                        graph=_tensor(graph, device, torch.int32), metric=normalize_metric(metric))
+
+
+def cagra_compressed_index_from_numpy(vq_centers, vq_codes, pq_codes, pq_codebooks,
+                                      dataset_norms, graph, metric, device=None
+                                      ) -> cagra.CompressedIndex:
+    """The port's VPQ-compressed CAGRA index over a reference index's arrays."""
+    return cagra.CompressedIndex(vq_centers=_tensor(vq_centers, device, torch.float32),
+                                 vq_codes=_tensor(vq_codes, device, torch.int32),
+                                 pq_codes=_tensor(pq_codes, device, torch.uint8),
+                                 pq_codebooks=_tensor(pq_codebooks, device, torch.float32),
+                                 dataset_norms=_tensor(dataset_norms, device, torch.float32),
+                                 graph=_tensor(graph, device, torch.int32),
+                                 metric=normalize_metric(metric))
+
+
+def cagra_packed_index_from_numpy(graph, child_vecs, child_norms, dataset_int8, dataset_norms,
+                                  scale, metric, device=None) -> cagra.PackedIndex:
+    """The port's packed CAGRA index over a reference index's arrays
+    (``child_vecs`` a sequence of pieces, padded tail rows included)."""
+    return cagra.PackedIndex(graph=_tensor(graph, device, torch.int32),
+                             child_vecs=tuple(_tensor(cv, device, torch.int8)
+                                              for cv in child_vecs),
+                             child_norms=_tensor(child_norms, device, torch.float32),
+                             dataset_int8=_tensor(dataset_int8, device, torch.int8),
+                             dataset_norms=_tensor(dataset_norms, device, torch.float32),
+                             scale=_tensor(scale, device, torch.float32).reshape(()),
+                             metric=normalize_metric(metric))
+
+
+def vamana_index_from_numpy(dataset, graph, medoid, metric, device=None) -> vamana.Index:
+    """The port's Vamana index over a reference index's arrays (graph -1
+    padded)."""
+    return vamana.Index(dataset=_tensor(dataset, device, torch.float32),
+                        graph=_tensor(graph, device, torch.int32), medoid=int(medoid),
+                        metric=normalize_metric(metric))
+
+
+def scann_index_from_numpy(centers, labels, soar_labels, codes, pq_codebooks, residuals_bf16,
+                           codes_soar=None, bf16_dataset=None, params=None, device=None
+                           ) -> scann.Index:
+    """The port's ScaNN index over a reference index's arrays (None where the
+    reference holds None). ``params`` is the reference's ``IndexParams`` or
+    the port's: the port's is rebuilt from its fields."""
+    if params is not None:
+        params = scann.IndexParams(**{f: getattr(params, f)
+                                      for f in scann.IndexParams.__dataclass_fields__})
+    return scann.Index(centers=_tensor(centers, device, torch.float32),
+                       labels=_tensor(labels, device, torch.int32),
+                       soar_labels=_tensor(soar_labels, device, torch.int32),
+                       codes=_tensor(codes, device, torch.uint8),
+                       pq_codebooks=_tensor(pq_codebooks, device, torch.float32),
+                       residuals_bf16=_tensor(residuals_bf16, device, torch.bfloat16),
+                       codes_soar=_tensor(codes_soar, device, torch.uint8),
+                       bf16_dataset=_tensor(bf16_dataset, device, torch.bfloat16),
+                       params=params)

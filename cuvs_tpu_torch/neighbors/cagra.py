@@ -1,5 +1,4 @@
-"""CAGRA: fixed-degree graph ANN index — port of ``cuvs_tpu.neighbors.cagra``
-(part 1: the raw-storage index, its builds, search and extend).
+"""CAGRA: fixed-degree graph ANN index — port of ``cuvs_tpu.neighbors.cagra``.
 
 ``cuvs::neighbors::cagra`` (cagra.hpp; build dispatch cagra_build.cuh:2206-2334;
 single-CTA search search_single_cta_jit.cuh:112-378). Defaults mirror the
@@ -17,31 +16,41 @@ search_width=1, max_iterations auto.
     has an unexplored finite entry (one host sync per step) or the
     iteration budget ends.
   * filtering: filtered nodes route the search but are not returned.
+  * layouts: raw rows (``Index``), VPQ codes decoded per candidate
+    (``compress`` -> ``CompressedIndex``) and packed records holding each
+    node's neighbours' int8 vectors (``pack`` -> ``PackedIndex``). One loop,
+    ``_beam_search``, serves all three; a layout only scores candidates.
+  * more builds: ``merge`` (physical rebuild or a logical composite),
+    ``build_ace`` (one partition on the device at a time) and
+    ``build_iterative`` (self-search rounds from a random graph).
 
-The random seeds of a search are drawn on the host from a ``torch.Generator``
-(the same ids on every device) and handed to ``_search_chunk``, so a test can
-feed it the reference's own draws. ``compress``, ``pack``, ``merge``,
-``build_ace`` and ``build_iterative`` are CAGRA part 2 (ROADMAP.md) and raise.
+Randomness is drawn on the host and handed to the work that uses it: a
+search's seeds (``_draw_seeds`` -> ``_search_chunk``), the iterative build's
+bootstrap graph (-> ``_iterate``), so a test can feed the reference's draws.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import os
+import sys
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from cuvs_tpu_torch.distance import pairwise
 from cuvs_tpu_torch.distance.pairwise import DistanceType, normalize_metric
+from cuvs_tpu_torch.neighbors import composite
 from cuvs_tpu_torch.neighbors import filters as filt
 from cuvs_tpu_torch.neighbors import graph_core, knn_graph
 from cuvs_tpu_torch.neighbors import ivf_pq as ivfpq
+from cuvs_tpu_torch.preprocessing import quantize
 from cuvs_tpu_torch.utils.device import as_tensor as _on_device
 from cuvs_tpu_torch.utils.tracing import traced
 
 EXPLORED = 1 << 30  # flag packed into the id payload of the itopk list
-_PART2 = "is CAGRA part 2 and not ported yet (ROADMAP.md Queue 1, CAGRA part 2)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -147,6 +156,148 @@ class Index:
         return (self.dataset,)
 
 
+@dataclasses.dataclass
+class CompressedIndex:
+    """CAGRA index over a VPQ-compressed dataset (cagra.hpp ``compression``;
+    vpq_dataset, common.hpp:411). Candidate rows are decoded during the
+    search."""
+
+    vq_centers: torch.Tensor  # [vq_n, d]
+    vq_codes: torch.Tensor  # [n] int32
+    pq_codes: torch.Tensor  # [n, pq_dim] uint8
+    pq_codebooks: torch.Tensor  # [pq_dim, book, pq_len]
+    dataset_norms: torch.Tensor  # [n] squared norms of the reconstruction
+    graph: torch.Tensor  # [n, degree] int32
+    metric: DistanceType = DistanceType.L2Expanded
+
+    @property
+    def size(self) -> int:
+        return self.vq_codes.shape[0]
+
+    @property
+    def dim(self) -> int:
+        return self.vq_centers.shape[1]
+
+    @property
+    def graph_degree(self) -> int:
+        return self.graph.shape[1]
+
+    @property
+    def device(self) -> torch.device:
+        return self.graph.device
+
+    @property
+    def data_pack(self):
+        return (self.vq_centers, self.vq_codes, self.pq_codes, self.pq_codebooks)
+
+
+@dataclasses.dataclass
+class PackedIndex:
+    """The packed layout: each node's record holds its neighbour ids, the
+    neighbours' int8 vectors and their norms, so expanding a parent is one
+    wide gather per piece instead of ``deg`` row gathers. It costs
+    deg * (d + 4) bytes a node (8.4 GB of child vectors at 1M x 128 x 64).
+
+    ``child_vecs`` splits the [n, deg, d] child array along the neighbour
+    axis into pieces of at most ``pack``'s ``_piece_bytes`` (2 GiB by
+    default: the reference's answer to a fragmented 16 GB TPU memory,
+    cagra.py:223-231; kept so files and results match). A piece may hold
+    padded tail rows past n (``pack``'s gather blocks); they are never read.
+    """
+
+    graph: torch.Tensor  # [n, deg] int32
+    child_vecs: tuple  # tuple of [n (+ pad), deg_i, d] int8, sum(deg_i) == deg
+    child_norms: torch.Tensor  # [n, deg] f32 squared norms of the f32 rows
+    dataset_int8: torch.Tensor  # [n, d] int8 (the seeds' rows)
+    dataset_norms: torch.Tensor  # [n] f32
+    scale: torch.Tensor  # [] f32 int8 quantization scale
+    metric: DistanceType = DistanceType.L2Expanded
+
+    @property
+    def size(self) -> int:
+        return self.graph.shape[0]
+
+    @property
+    def dim(self) -> int:
+        return self.dataset_int8.shape[1]
+
+    @property
+    def graph_degree(self) -> int:
+        return self.graph.shape[1]
+
+    @property
+    def device(self) -> torch.device:
+        return self.graph.device
+
+
+def pack(index: Index, _blk: int = 0, _piece_bytes: int = 2 << 30) -> PackedIndex:
+    """Repack a CAGRA index for serving from packed records (see PackedIndex).
+
+    int8 codes are ``clip(round(x / scale), -127, 127)`` with ``scale =
+    max(max|x|, 1e-30) / 127``, both divisions by tensors (a CUDA division by
+    a Python scalar multiplies by the reciprocal and would round otherwise).
+    The child array is gathered block by block into preallocated pieces:
+    blocks of ~1 GB (``_blk`` rows when given; else a divisor of n near that
+    size, so no padded tail), pieces of at most ``_piece_bytes``. The tail of
+    the last block, when there is one, holds row 0's vector as the
+    reference's zero-padded graph gives it."""
+    if index.metric not in (DistanceType.L2Expanded, DistanceType.L2SqrtExpanded,
+                            DistanceType.InnerProduct):
+        raise ValueError("packed search supports L2/IP metrics")
+    x, g = index.dataset, index.graph
+    n, deg = g.shape
+    d = x.shape[1]
+    dev = x.device
+    amax = torch.clamp_min(x.abs().max(), 1e-30)  # in the storage dtype, as the reference
+    scale = (amax / torch.full_like(amax, 127.0)).float()
+    x8 = torch.empty((n, d), dtype=torch.int8, device=dev)
+    qblk = max(1, min(n, (256 << 20) // max(4 * d, 1)))  # ~256 MB f32 transient
+    for s in range(0, n, qblk):
+        x8[s:s + qblk] = torch.clamp(torch.round(x[s:s + qblk].float() / scale),
+                                     -127, 127).to(torch.int8)
+    child_norms = index.dataset_norms[g.long()]
+    deg_i = max(1, min(deg, _piece_bytes // max(n * d, 1)))
+    blk = _blk or max(1, min(n, (1 << 30) // max(deg_i * d, 1)))
+    if not _blk:
+        for cand in range(blk, max(blk // 4, 0), -1):
+            if n % cand == 0:
+                blk = cand
+                break
+    nb = -(-n // blk)
+    pieces = []
+    for off in range(0, deg, deg_i):
+        w = min(deg_i, deg - off)
+        piece = torch.empty((nb * blk, w, d), dtype=torch.int8, device=dev)
+        for s in range(0, nb * blk, blk):
+            e = min(s + blk, n)
+            piece[s:e] = x8[g[s:e, off:off + w].long()]
+            if e < s + blk:
+                piece[e:s + blk] = x8[0]
+        pieces.append(piece)
+    return PackedIndex(graph=g, child_vecs=tuple(pieces), child_norms=child_norms,
+                       dataset_int8=x8, dataset_norms=index.dataset_norms, scale=scale,
+                       metric=index.metric)
+
+
+def compress(index: Index, vq_n_centers: int = 256, pq_dim: int = 0, pq_bits: int = 8,
+             seed: int = 0) -> CompressedIndex:
+    """Replace the raw rows by VPQ codes (cagra_build.cuh:2311 vpq_build);
+    the graph is kept as it is. The quantizer trains on the index's device."""
+    vpq = quantize.vpq_train(index.dataset, vq_n_centers=vq_n_centers, pq_dim=pq_dim,
+                      pq_bits=pq_bits, seed=seed)
+    return _compress_with(index, vpq)
+
+
+def _compress_with(index: Index, vpq) -> CompressedIndex:
+    """``compress`` given a trained VPQ quantizer: codes, and the norms of
+    the reconstruction."""
+    vq_codes, pq_codes = quantize.vpq_encode(vpq, index.dataset)
+    recon = quantize.vpq_decode(vpq, vq_codes, pq_codes)
+    return CompressedIndex(vq_centers=vpq.vq_centers, vq_codes=vq_codes, pq_codes=pq_codes,
+                           pq_codebooks=vpq.pq.codebooks, dataset_norms=pairwise.row_norms(recon),
+                           graph=index.graph, metric=index.metric)
+
+
 @traced("cagra::build")
 def build(dataset, params: Optional[IndexParams] = None, device=None, **kw) -> Index:
     """knn graph -> optimize -> index (cagra_build.cuh:2206). Host data goes
@@ -182,8 +333,16 @@ def from_graph(dataset, graph, metric=DistanceType.L2Expanded, storage_dtype=Non
 
 
 def _decode_rows(data_pack, ids):
-    """Rows for candidate ids (raw storage; the VPQ layout is CAGRA part 2)."""
-    return data_pack[0][ids]
+    """Rows for candidate ids from raw storage or VPQ codes: the coarse
+    centre plus each subspace's codebook row (indexed by the long codes, no
+    one-hot), cut to d."""
+    if len(data_pack) == 1:
+        return data_pack[0][ids]
+    vq_centers, vq_codes, pq_codes, codebooks = data_pack
+    c = pq_codes[ids].long()  # [..., pq_dim]
+    rec = codebooks[torch.arange(codebooks.shape[0], device=c.device), c]  # [..., pq_dim, len]
+    rec = rec.reshape(c.shape[:-1] + (-1,))
+    return vq_centers[vq_codes[ids].long()] + rec[..., :vq_centers.shape[1]]
 
 
 def _distances_to(data_pack, dataset_norms, q, qnorm, ids, metric, compute_dtype):
@@ -208,25 +367,21 @@ def _draw_seeds(n: int, B: int, n_seeds: int, seed: int, start: int) -> torch.Te
     return torch.randint(0, n, (B, n_seeds), generator=gen, dtype=torch.int32)
 
 
-def _search_chunk(data_pack, dataset_norms, graph, queries, qids, prefilter, seeds, k: int,
-                  itopk: int, search_width: int, max_iter: int, vis_size: int, metric,
-                  compute_dtype) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Beam search of one chunk of queries [B, d] from ``seeds`` [B, n_seeds].
-    Returns (distances [B, k], ids [B, k] int32)."""
-    dev = dataset_norms.device
-    n = dataset_norms.shape[0]
+def _beam_search(seed_d, seeds, graph, qids, prefilter, score_children, k: int, itopk: int,
+                 search_width: int, max_iter: int, vis_size: int, metric
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The beam search shared by every layout, from the ``seeds`` [B, n_seeds]
+    and their min-space distances ``seed_d``. ``score_children(parents [B, W],
+    children [B, W * deg])`` scores the children of the expanded parents
+    (invalid parents are 0 and their children -1; scores of those are
+    ignored). Returns (distances [B, k], ids [B, k] int32)."""
+    dev = seed_d.device
+    n = graph.shape[0]
     deg = graph.shape[1]
-    B = queries.shape[0]
+    B = seed_d.shape[0]
     L, W = itopk, search_width
     C = W * deg  # candidates per iteration
-    brange = torch.arange(B, device=dev)[:, None]
-
-    qf = queries.float()
-    qnorm = (qf * qf).sum(1)
-    seeds = seeds.to(dev, torch.int32)
     n_seeds = seeds.shape[1]
-    seed_d = _distances_to(data_pack, dataset_norms, queries, qnorm, seeds, metric,
-                           compute_dtype)
     # identical seeds would be returned twice: every seed equal to an earlier one is +inf
     earlier = torch.ones((n_seeds, n_seeds), dtype=torch.bool, device=dev).tril(-1)
     s_dup = ((seeds[:, :, None] == seeds[:, None, :]) & earlier).any(2)
@@ -258,16 +413,16 @@ def _search_chunk(data_pack, dataset_norms, graph, queries, qids, prefilter, see
             pos = (it * W + slots) % vis_size
             vis[:, pos] = torch.where(parent_valid, parent_ids, -2)
 
-        children = graph[torch.where(parent_valid, parent_ids, 0).long()].reshape(B, C)
+        safe_p = torch.where(parent_valid, parent_ids, 0)
+        children = graph[safe_p.long()].reshape(B, C)
         children = torch.where(parent_valid.repeat_interleave(deg, 1), children, -1)
         # dedup against the itopk list, the visited ring and earlier candidates
         invalid = (children < 0) | (children[:, :, None] == raw_id[:, None, :]).any(2)
         invalid |= ((children[:, :, None] == children[:, None, :]) & c_earlier).any(2)
         if vis_size > 0:
             invalid |= (children[:, :, None] == vis[:, None, :]).any(2)
-        cand_d = _distances_to(data_pack, dataset_norms, queries, qnorm,
-                               torch.clamp_min(children, 0), metric, compute_dtype)
-        cand_d = torch.where(invalid, float("inf"), cand_d)
+        cand_d = torch.where(invalid, float("inf"),
+                             score_children(safe_p, torch.clamp_min(children, 0)))
 
         mv, order = torch.sort(torch.cat([state_v, cand_d], 1), dim=1, stable=True)
         mid = torch.gather(torch.cat([state_id, children], 1), 1, order)
@@ -290,6 +445,62 @@ def _search_chunk(data_pack, dataset_norms, graph, queries, qids, prefilter, see
     return out_d, out_ids
 
 
+def _search_chunk(data_pack, dataset_norms, graph, queries, qids, prefilter, seeds, k: int,
+                  itopk: int, search_width: int, max_iter: int, vis_size: int, metric,
+                  compute_dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Beam search of one chunk of queries [B, d] from ``seeds`` [B, n_seeds]
+    over raw rows or VPQ codes (``data_pack``), scoring candidates by row id.
+    Returns (distances [B, k], ids [B, k] int32)."""
+    qf = queries.float()
+    qnorm = (qf * qf).sum(1)
+    seeds = seeds.to(dataset_norms.device, torch.int32)
+
+    def score(parents, children):
+        return _distances_to(data_pack, dataset_norms, queries, qnorm, children, metric,
+                             compute_dtype)
+
+    seed_d = _distances_to(data_pack, dataset_norms, queries, qnorm, seeds, metric,
+                           compute_dtype)
+    return _beam_search(seed_d, seeds, graph, qids, prefilter, score, k, itopk, search_width,
+                        max_iter, vis_size, metric)
+
+
+def _search_chunk_packed(graph, child_vecs, child_norms, dataset_int8, dataset_norms, scale,
+                         queries, qids, prefilter, seeds, k: int, itopk: int,
+                         search_width: int, max_iter: int, vis_size: int, metric,
+                         compute_dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Beam search over the packed layout: the same traversal as
+    ``_search_chunk``; the children's int8 vectors and norms come from the
+    parent's packed record (one wide gather per piece) instead of one row
+    each. The scale is folded into the query (``q / scale``, a tensor
+    division) and restored on the dots (``dots * scale^2``)."""
+    B = queries.shape[0]
+    qf = queries.float()
+    qnorm = (qf * qf).sum(1)
+    qc = (qf / scale).to(compute_dtype).float()[:, :, None]
+    s2 = scale * scale
+    seeds = seeds.to(graph.device, torch.int32)
+
+    def from_dots(dots, norms_rows):
+        real = dots * s2
+        if metric == DistanceType.InnerProduct:
+            return -real
+        return torch.clamp_min(qnorm[:, None] + norms_rows - 2.0 * real, 0.0)
+
+    def score(parents, children):
+        p = parents.long()
+        # pieces split the neighbour axis in column order: concat rebuilds [B, W, deg, d]
+        cvecs = torch.cat([cv[p] for cv in child_vecs], 2).reshape(B, children.shape[1], -1)
+        dots = torch.bmm(cvecs.to(compute_dtype).float(), qc)[:, :, 0]
+        return from_dots(dots, child_norms[p].reshape(B, -1))
+
+    s = seeds.long()
+    seed_d = from_dots(torch.bmm(dataset_int8[s].to(compute_dtype).float(), qc)[:, :, 0],
+                       dataset_norms[s])
+    return _beam_search(seed_d, seeds, graph, qids, prefilter, score, k, itopk, search_width,
+                        max_iter, vis_size, metric)
+
+
 def _plan(params: SearchParams, k: int) -> Tuple[int, int, int]:
     """(itopk, max_iter, vis_size) of a search (search_plan.cuh:113-260)."""
     itopk = max(params.itopk_size, k)
@@ -302,10 +513,11 @@ def _plan(params: SearchParams, k: int) -> Tuple[int, int, int]:
 
 
 @traced("cagra::search")
-def search(index: Index, queries, k: int, params: Optional[SearchParams] = None,
+def search(index, queries, k: int, params: Optional[SearchParams] = None,
            prefilter: Optional[filt.Prefilter] = None, seed: int = 0, **kw
            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Greedy beam search (search_single_cta_jit.cuh analog). Returns
+    """Greedy beam search (search_single_cta_jit.cuh analog) over an
+    ``Index``, a ``CompressedIndex`` or a ``PackedIndex``. Returns
     (distances [nq, k], neighbors [nq, k] int32). Queries follow the index."""
     if params is None:
         params = SearchParams(**kw)
@@ -320,10 +532,16 @@ def search(index: Index, queries, k: int, params: Optional[SearchParams] = None,
     for s in range(0, nq, chunk):
         q = queries[s:s + chunk]
         qids = torch.arange(s, s + q.shape[0], device=index.device)
-        d, i = _search_chunk(index.data_pack, index.dataset_norms, index.graph, q, qids,
-                             prefilter, _draw_seeds(index.size, q.shape[0], n_seeds, seed, s),
-                             int(k), int(itopk), int(params.search_width), int(max_iter),
-                             int(vis_size), index.metric, params.compute_dtype)
+        seeds = _draw_seeds(index.size, q.shape[0], n_seeds, seed, s)
+        plan = (int(k), int(itopk), int(params.search_width), int(max_iter), int(vis_size),
+                index.metric, params.compute_dtype)
+        if isinstance(index, PackedIndex):
+            d, i = _search_chunk_packed(index.graph, index.child_vecs, index.child_norms,
+                                        index.dataset_int8, index.dataset_norms, index.scale,
+                                        q, qids, prefilter, seeds, *plan)
+        else:
+            d, i = _search_chunk(index.data_pack, index.dataset_norms, index.graph, q, qids,
+                                 prefilter, seeds, *plan)
         outs_d.append(d)
         outs_i.append(i)
     return torch.cat(outs_d), torch.cat(outs_i)
@@ -400,26 +618,127 @@ def extend(index: Index, new_vectors, params: Optional[SearchParams] = None) -> 
     return from_graph(dataset, torch.cat([graph_old, fwd]), metric=index.metric)
 
 
-def compress(index: Index, *args, **kw):
-    """VPQ-compressed storage (cagra_build.cuh:2311)."""
-    raise NotImplementedError(f"cagra.compress {_PART2}")
+def merge(indexes, datasets=None, strategy: str = "physical",
+          params: Optional[IndexParams] = None):
+    """Merge CAGRA indexes (cagra.hpp:2477-2501 MergeStrategy). "physical"
+    rebuilds over the concatenated ``dataset``s; any other strategy returns
+    the logical composite view (``composite.merge``), which searches every
+    child and merges their top-k."""
+    if strategy == "physical":
+        data = torch.cat([ix.dataset for ix in indexes])
+        return build(data, params) if params is not None else build(data)
+    return composite.merge(sys.modules[__name__], indexes, strategy="logical")
 
 
-def pack(index: Index, *args, **kw):
-    """The packed serving layout."""
-    raise NotImplementedError(f"cagra.pack {_PART2}")
+@dataclasses.dataclass(frozen=True)
+class AceParams:
+    """Mirrors cagra::ace_params (cagra.hpp:41-101): partitioned builds for
+    graphs larger than device memory."""
+
+    npartitions: int = 4
+    overlap: int = 2  # core + (overlap - 1) halo partitions per point
+    build_dir: Optional[str] = None  # spill the graph to disk (a .npy memmap)
+    intermediate_graph_degree: int = 64
+    graph_degree: int = 32
+    seed: int = 0
 
 
-def merge(indexes, *args, **kw):
-    """Merge CAGRA indexes (cagra.hpp:2477-2501)."""
-    raise NotImplementedError(f"cagra.merge {_PART2}")
+def build_ace(dataset, params: Optional[AceParams] = None, device=None, **kw) -> Index:
+    """ACE (Augmented Core Extraction) build (cagra_build.cuh:77-1028).
+
+    Balanced k-means cuts the rows into ``npartitions``; each row's core
+    partition is its nearest, and it is a halo member of its next
+    ``overlap - 1``. Each partition's sub-graph is built over its core and
+    halo members, so edges near the borders stay right, and only core rows
+    are written to the global graph (host memory, or ``build_dir``'s
+    ``ace_graph.npy`` memmap). The device holds one partition's build at a
+    time: each sub-index is freed before the next. Host data goes to
+    ``device`` (None: the CUDA card)."""
+    from cuvs_tpu_torch.cluster import kmeans_balanced
+
+    if params is None:
+        params = AceParams(**kw)
+    x = _on_device(dataset, device).float()
+    P = max(2, params.npartitions)
+    centers = kmeans_balanced.fit(x, P, seed=params.seed)
+    graph = _ace_assemble(x, _ace_ranks(x, centers, params.overlap), P, params)
+    return from_graph(x, np.array(graph))
 
 
-def build_ace(dataset, *args, **kw):
-    """ACE partitioned build (cagra_build.cuh:77-1028)."""
-    raise NotImplementedError(f"cagra.build_ace {_PART2}")
+def _ace_ranks(x: torch.Tensor, centers: torch.Tensor, overlap: int) -> np.ndarray:
+    """Each row's ``overlap`` nearest partitions [n, overlap], ordered as the
+    reference's host ``np.argsort`` orders them."""
+    d2c = pairwise.pairwise_distance(x, centers).cpu().numpy()
+    return np.argsort(d2c, axis=1)[:, :overlap]
 
 
-def build_iterative(dataset, *args, **kw):
-    """Iterative build (cagra_build.cuh:2015)."""
-    raise NotImplementedError(f"cagra.build_iterative {_PART2}")
+def _ace_assemble(x: torch.Tensor, ranks: np.ndarray, P: int, params: AceParams) -> np.ndarray:
+    """The global graph [n, graph_degree] int32 from one ``build`` per
+    partition (over core + halo rows; core rows written, remapped to global
+    ids). A partition of at most ``graph_degree`` members links its core
+    rows to its members, repeated."""
+    n = x.shape[0]
+    deg = params.graph_degree
+    if params.build_dir:
+        os.makedirs(params.build_dir, exist_ok=True)
+        graph = np.lib.format.open_memmap(os.path.join(params.build_dir, "ace_graph.npy"),
+                                          mode="w+", dtype=np.int32, shape=(n, deg))
+    else:
+        graph = np.zeros((n, deg), np.int32)
+    for p in range(P):
+        core = np.where(ranks[:, 0] == p)[0]
+        halo = np.where((ranks[:, 1:] == p).any(axis=1))[0]
+        members = np.concatenate([core, halo])
+        if len(members) <= deg:
+            graph[core] = np.resize(members, (len(core), deg))
+            continue
+        sub = build(x[torch.from_numpy(members).to(x.device)], IndexParams(
+            intermediate_graph_degree=min(params.intermediate_graph_degree, len(members) - 1),
+            graph_degree=min(deg, len(members) - 1), seed=params.seed))
+        core_rows = sub.graph[:len(core)].cpu().numpy()  # local ids over `members`
+        del sub
+        remapped = members[core_rows]
+        if remapped.shape[1] < deg:
+            remapped = np.pad(remapped, ((0, 0), (0, deg - remapped.shape[1])), mode="edge")
+        graph[core] = remapped
+    if params.build_dir:
+        graph.flush()
+    return graph
+
+
+def build_iterative(dataset, graph_degree: int = 32, intermediate_graph_degree: int = 64,
+                    n_rounds: int = 3, metric=DistanceType.L2Expanded, seed: int = 0,
+                    device=None) -> Index:
+    """Iterative CAGRA build (cagra_build.cuh:2015 iterative-search path): a
+    random regular bootstrap graph, then ``n_rounds`` of self-search on the
+    current graph and re-optimization. For when neither an exact self-search
+    nor nn-descent fits the budget. The bootstrap graph is drawn on the host
+    from a ``torch.Generator`` seeded by ``seed`` (the same graph on every
+    device). Host data goes to ``device`` (None: the CUDA card)."""
+    x = _on_device(dataset, device)
+    n = x.shape[0]
+    ideg = min(intermediate_graph_degree, n - 1)
+    gdeg = min(graph_degree, ideg)
+    gen = torch.Generator()
+    gen.manual_seed(int(seed))
+    graph = torch.randint(0, n, (n, gdeg), generator=gen, dtype=torch.int32)
+    return _iterate(x, graph, ideg, n_rounds, metric, seed)
+
+
+def _iterate(x: torch.Tensor, graph, ideg: int, n_rounds: int, metric, seed: int) -> Index:
+    """``build_iterative``'s rounds from a bootstrap ``graph``: each row
+    searches k = ideg + 1 neighbours (itopk max(2 ideg, 64), seed + round),
+    drops itself, and the knn graph is pruned to the bootstrap's degree."""
+    n = x.shape[0]
+    gdeg = graph.shape[1]
+    index = from_graph(x, graph, metric=metric)
+    qf = x.float()
+    rows = torch.arange(n, dtype=torch.int32, device=x.device)[:, None]
+    for r in range(n_rounds):
+        d, nbrs = search(index, qf, min(ideg + 1, n - 1), itopk_size=max(2 * ideg, 64),
+                         seed=seed + r)
+        nbrs = nbrs.to(torch.int32)
+        dd = torch.where(nbrs == rows, float("inf"), d)
+        knn = torch.gather(nbrs, 1, torch.argsort(dd, dim=1, stable=True)[:, :ideg])
+        index = from_graph(x, graph_core.optimize(knn, gdeg), metric=metric)
+    return index

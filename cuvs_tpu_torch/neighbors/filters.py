@@ -13,6 +13,7 @@ from typing import Callable, Optional
 import torch
 
 from cuvs_tpu_torch.core import bitset
+from cuvs_tpu_torch.utils.device import as_tensor as _on_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,9 +48,10 @@ def udf_filter(fn: Callable) -> Prefilter:
     return Prefilter(kind="udf", fn=fn)
 
 
-def from_mask(mask) -> Prefilter:
-    """A bitset (1-D) or bitmap (2-D) filter from a boolean mask."""
-    mask = torch.as_tensor(mask, dtype=torch.bool)
+def from_mask(mask, device=None) -> Prefilter:
+    """A bitset (1-D) or bitmap (2-D) filter from a boolean mask. A host mask
+    goes to ``device`` (None: the CUDA card)."""
+    mask = _on_device(mask, device).to(torch.bool)
     if mask.ndim == 1:
         return Prefilter(kind="bitset", bits=bitset.bitset_from_mask(mask))
     return Prefilter(kind="bitmap", bits=bitset.bitmap_from_mask(mask))

@@ -13,6 +13,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from cuvs_tpu_torch.utils.device import as_tensor as _on_device
+
 
 def topk(values: torch.Tensor, k: int, select_min: bool,
          recall_target: Optional[float] = None) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -32,8 +34,8 @@ def _pad_to(x: torch.Tensor, size: int, fill) -> torch.Tensor:
 
 
 def select_k(values, k: int, select_min: bool = True, indices: Optional[torch.Tensor] = None,
-             len_i: Optional[torch.Tensor] = None, recall_target: Optional[float] = None
-             ) -> Tuple[torch.Tensor, torch.Tensor]:
+             len_i: Optional[torch.Tensor] = None, recall_target: Optional[float] = None,
+             device=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Select the k smallest (or largest) values per row.
 
     Args:
@@ -43,12 +45,14 @@ def select_k(values, k: int, select_min: bool = True, indices: Optional[torch.Te
       indices: optional [batch, len] payload ids; defaults to positions.
       len_i: optional [batch] valid lengths; elements beyond are ignored.
       recall_target: accepted for parity; the selection is exact.
+      device: where host data goes (None: the CUDA card); a tensor keeps
+        its device.
 
     Returns:
       (values [batch, k] sorted best-first, indices [batch, k] int32 or the
       payload's dtype). Rows shorter than k are padded with +/-inf and id 0.
     """
-    values = torch.as_tensor(values)
+    values = _on_device(values, device)
     squeeze = values.ndim == 1
     if squeeze:
         values = values[None]
@@ -70,18 +74,19 @@ def select_k(values, k: int, select_min: bool = True, indices: Optional[torch.Te
     return v, out_i
 
 
-def merge_parts(values_parts, indices_parts, k: int, select_min: bool = True
+def merge_parts(values_parts, indices_parts, k: int, select_min: bool = True, device=None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Merge per-part top-k results into one top-k (knn_merge_parts).
 
     Parts are a list of [batch, k_i] tensors or stacked [n_parts, batch, k_i].
-    Ids must already be global."""
+    Ids must already be global. Host parts go to ``device`` (None: the CUDA
+    card)."""
     if isinstance(values_parts, (list, tuple)):
-        vals = torch.cat([torch.as_tensor(v) for v in values_parts], dim=-1)
-        idxs = torch.cat([torch.as_tensor(i) for i in indices_parts], dim=-1)
+        vals = torch.cat([_on_device(v, device) for v in values_parts], dim=-1)
+        idxs = torch.cat([_on_device(i, vals.device) for i in indices_parts], dim=-1)
     else:
-        vp = torch.as_tensor(values_parts)
-        ip = torch.as_tensor(indices_parts)
+        vp = _on_device(values_parts, device)
+        ip = _on_device(indices_parts, vp.device)
         vals = torch.movedim(vp, 0, -2).reshape(*vp.shape[1:-1], -1)
         idxs = torch.movedim(ip, 0, -2).reshape(*ip.shape[1:-1], -1)
     return select_k(vals, k, select_min=select_min, indices=idxs)

@@ -3,8 +3,8 @@
 One ``.npz`` file: a ``__header__`` entry holding JSON (the magic
 ``cuvs_tpu.index``, the version, the kind, the static fields and the sorted
 array keys) and the arrays as ``a0 .. aN`` in that order, under the
-reference's tree-path keys (``.centers``, ``.lists.offsets``, ...; a None
-field has no key). No pickle: ``load`` checks the header before it reads an
+reference's tree-path keys (``.centers``, ``.lists.offsets``, the packed
+CAGRA's ``.child_vecs[i]`` pieces, ...; a None field has no key). No pickle: ``load`` checks the header before it reads an
 array and rebuilds the index through the ``interop`` constructors, which also
 take the reference's padded serving arrays, so each package loads the
 other's files.
@@ -35,12 +35,12 @@ _STATICS = {
     "ivf_pq": ("metric", "window", "n_rows", "pq_bits", "codebook_gen", "pq_dim_static"),
     "ivf_sq": ("metric", "window", "n_rows"),
     "ivf_rabitq": ("metric", "window", "n_rows", "bits_per_dim"),
+    "cagra": ("metric",),
+    "cagra.CompressedIndex": ("metric",),
+    "cagra.PackedIndex": ("metric",),
 }
 _WORDS = (".sorted_codes", ".sorted_codes_t")  # int32 code words of these two kinds
 _WORD_KINDS = ("ivf_pq", "ivf_rabitq")
-_CAGRA = ("cagra", "cagra.CompressedIndex", "cagra.PackedIndex")
-_CAGRA_LATER = ("{} index files are CAGRA part 2 and not ported yet "
-                "(ROADMAP.md Queue 1, CAGRA part 2)")
 
 
 def kind_of(index) -> str:
@@ -68,14 +68,15 @@ def _arrays_of(index, kind: str) -> Dict[str, np.ndarray]:
                 out[f"{key}.{name}"] = _numpy(arr, False)
         elif isinstance(v, torch.Tensor):
             out[key] = _numpy(v, key in words)
+        elif isinstance(v, tuple):  # the packed CAGRA's child_vecs pieces
+            for i, arr in enumerate(v):
+                out[f"{key}[{i}]"] = _numpy(arr, False)
     return out
 
 
 def save(path: str, index: Any) -> None:
     """Write an index to ``path`` (an npz container)."""
     kind = kind_of(index)
-    if kind in _CAGRA:
-        raise NotImplementedError(_CAGRA_LATER.format(kind))
     if kind not in _STATICS:
         raise ValueError(f"cannot save an index of kind {kind!r}")
     statics = {}
@@ -124,8 +125,25 @@ def _build(kind: str, a: Dict[str, np.ndarray], s: Dict[str, Any], device):
             a[".sorted_codes"], a[".sorted_fadd"], a[".sorted_frescale"], *_lists(a),
             s["metric"], s["window"], s["n_rows"], s["bits_per_dim"], a.get(".sorted_codes_t"),
             device=device)
-    if kind in _CAGRA:
-        raise NotImplementedError(_CAGRA_LATER.format(kind))
+    if kind == "cagra":
+        return interop.cagra_index_from_numpy(a[".dataset"], a[".dataset_norms"], a[".graph"],
+                                              s["metric"], device=device)
+    if kind == "cagra.CompressedIndex":
+        return interop.cagra_compressed_index_from_numpy(
+            a[".vq_centers"], a[".vq_codes"], a[".pq_codes"], a[".pq_codebooks"],
+            a[".dataset_norms"], a[".graph"], s["metric"], device=device)
+    if kind == "cagra.PackedIndex":
+        # pieces are keyed .child_vecs[i]; a single .child_vecs key is the
+        # reference's older one-array format
+        if ".child_vecs" in a:
+            pieces = [a[".child_vecs"]]
+        else:
+            keys = sorted((k for k in a if k.startswith(".child_vecs[")),
+                          key=lambda k: int(k[len(".child_vecs["):-1]))
+            pieces = [a[k] for k in keys]
+        return interop.cagra_packed_index_from_numpy(
+            a[".graph"], pieces, a[".child_norms"], a[".dataset_int8"], a[".dataset_norms"],
+            a[".scale"], s["metric"], device=device)
     raise ValueError(f"unknown index kind {kind!r}")
 
 
@@ -142,7 +160,7 @@ def load(path: str, expected_kind: str = None, device=None) -> Any:
         kind = header["kind"]
         if expected_kind is not None and kind != expected_kind:
             raise ValueError(f"expected {expected_kind} index, file holds {kind}")
-        if kind not in _STATICS and kind not in _CAGRA:
+        if kind not in _STATICS:
             raise ValueError(f"unknown index kind {kind!r}")
         arrays = {name: z[f"a{i}"] for i, name in enumerate(header["arrays"])}
     return _build(kind, arrays, header["statics"], device)

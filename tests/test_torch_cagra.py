@@ -22,7 +22,6 @@ from cuvs_tpu.neighbors import filters as jax_filters
 from cuvs_tpu_torch import interop
 from cuvs_tpu_torch.distance import pairwise
 from cuvs_tpu_torch.neighbors import cagra, filters, graph_core
-from cuvs_tpu_torch.utils import serialize
 from tests.utils import calc_recall, make_blobs, naive_knn
 
 torch.set_num_threads(1)
@@ -287,10 +286,29 @@ def test_search_seeds_do_not_depend_on_the_device_or_chunk(built):
     assert not torch.equal(s, cagra._draw_seeds(tidx.size, 80, 64, 5, 80))
 
 
-def test_part_two_raises(built, tmp_path):
-    _, _, _, tidx = built
-    for fn in (cagra.compress, cagra.pack, cagra.merge, cagra.build_ace, cagra.build_iterative):
-        with pytest.raises(NotImplementedError, match="CAGRA part 2"):
-            fn(tidx)
-    with pytest.raises(NotImplementedError, match="CAGRA part 2"):
-        serialize.save(str(tmp_path / "c.npz"), tidx)
+@pytest.mark.parametrize("part", ["compress", "pack", "merge", "build_ace", "build_iterative"])
+def test_part_two_runs(built, part, tmp_path):
+    """Each of CAGRA part 2's entry points gives an index that searches
+    (test_torch_cagra_layouts.py holds them against the reference)."""
+    x, q, _, tidx = built
+    xt = torch.from_numpy(x)
+    small = dict(intermediate_graph_degree=32, graph_degree=16, seed=0)
+    if part == "compress":
+        ix, floor = cagra.compress(tidx, vq_n_centers=32, pq_dim=8), 0.5
+    elif part == "pack":
+        ix, floor = cagra.pack(tidx), 0.8
+    elif part == "merge":
+        halves = [cagra.build(xt[:1500], **small), cagra.build(xt[1500:], **small)]
+        ix, floor = cagra.merge(halves, strategy="logical"), 0.8
+        assert ix.size == 3000
+        d, i = ix.search(q, 10, itopk_size=64)
+    elif part == "build_ace":
+        ix, floor = cagra.build_ace(xt, npartitions=2, build_dir=str(tmp_path), **small), 0.8
+    else:
+        ix, floor = cagra.build_iterative(xt, n_rounds=2, graph_degree=16,
+                                          intermediate_graph_degree=32), 0.8
+    if part != "merge":
+        d, i = cagra.search(ix, q, 10, itopk_size=64)
+    assert i.shape == (len(q), 10) and bool(torch.isfinite(d).all())
+    _, gti = naive_knn(q, x, 10)
+    assert calc_recall(i.numpy(), gti) >= floor

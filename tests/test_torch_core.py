@@ -113,7 +113,7 @@ def test_bitset_matches_reference():
     flipped = bitset.bitset_set(got, torch.tensor([1, 1, 99]), False)
     ref_flipped = np.asarray(jax_bitset.bitset_set(jnp.asarray(ref), jnp.array([1, 1, 99]), False))
     assert np.array_equal(flipped.numpy().view(np.uint32), ref_flipped)
-    assert (bitset.bitset_create(64).numpy().view(np.uint32) == 0xFFFFFFFF).all()
+    assert (bitset.bitset_create(64, device="cpu").numpy().view(np.uint32) == 0xFFFFFFFF).all()
 
 
 @pytest.mark.parametrize("kind", ["bitset", "bitmap", "udf", "none"])

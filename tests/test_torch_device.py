@@ -7,10 +7,13 @@ import torch
 
 from cuvs_tpu_torch import interop
 from cuvs_tpu_torch.cluster import kmeans_balanced
+from cuvs_tpu_torch.core import bitpack, bitset
 from cuvs_tpu_torch.distance import pairwise
-from cuvs_tpu_torch.neighbors import (all_neighbors, brute_force, cagra, graph_core, ivf_flat,
-                                      ivf_pq, ivf_rabitq, ivf_sq, knn_graph, nn_descent, refine)
+from cuvs_tpu_torch.neighbors import (all_neighbors, brute_force, cagra, filters, graph_core,
+                                      ivf_flat, ivf_pq, ivf_rabitq, ivf_sq, knn_graph, nn_descent,
+                                      refine, scann, vamana)
 from cuvs_tpu_torch.preprocessing import quantize
+from cuvs_tpu_torch.selection import select_k
 from cuvs_tpu_torch.utils import device as dev_mod
 
 torch.set_num_threads(1)
@@ -18,6 +21,7 @@ torch.set_num_threads(1)
 _X = np.random.default_rng(0).standard_normal((256, 16)).astype(np.float32)
 # the exact 16-NN graph of _X without self: the graph functions' input
 _G = np.argsort(((_X[:, None] - _X[None]) ** 2).sum(-1), 1, kind="stable")[:, 1:17].astype(np.int32)
+_WORDS = np.random.default_rng(1).integers(0, 1 << 32, (256, 2), dtype=np.uint32)  # packed codes
 
 
 def _like(x, a):
@@ -62,6 +66,23 @@ _ENTRIES = {
         x, intermediate_graph_degree=16, graph_degree=8, build_algo="brute_force",
         device=device).graph,
     "cagra.from_graph": lambda x, device: cagra.from_graph(x, _like(x, _G), device=device).graph,
+    "select_k.select_k": lambda x, device: select_k.select_k(x, 4, device=device)[0],
+    "select_k.merge_parts": lambda x, device: select_k.merge_parts(
+        [x[:, :8], x[:, 8:]], [_like(x, _G[:, :8]), _like(x, _G[:, 8:])], 4, device=device)[1],
+    "bitset.bitset_from_mask": lambda x, device: bitset.bitset_from_mask(x[:, 0] > 0,
+                                                                         device=device),
+    "bitset.bitmap_from_mask": lambda x, device: bitset.bitmap_from_mask(x > 0, device=device),
+    "filters.from_mask": lambda x, device: filters.from_mask(x > 0, device=device).bits,
+    "bitpack.pack": lambda x, device: bitpack.pack(x > 0, 1, device=device),
+    "bitpack.unpack": lambda x, device: bitpack.unpack(_like(x, _WORDS), 4, 16, device=device),
+    "cagra.build_ace": lambda x, device: cagra.build_ace(
+        x, npartitions=2, intermediate_graph_degree=16, graph_degree=8, device=device).graph,
+    "cagra.build_iterative": lambda x, device: cagra.build_iterative(
+        x, graph_degree=8, intermediate_graph_degree=16, n_rounds=1, device=device).graph,
+    "vamana.build": lambda x, device: vamana.build(x, graph_degree=8, visited_size=16,
+                                                   device=device).graph,
+    "scann.build": lambda x, device: scann.build(x, n_lists=4, pq_dim=4, pq_bits=4,
+                                                 device=device).codes,
 }
 
 
@@ -87,6 +108,12 @@ def test_a_tensor_keeps_its_device(entry, no_cuda):
 def test_host_data_without_a_device_needs_the_card(entry, no_cuda):
     with pytest.raises(RuntimeError, match="CUDA"):
         _ENTRIES[entry](_X, None)
+
+
+def test_bitset_create_goes_where_the_caller_says(no_cuda):
+    assert bitset.bitset_create(64, device="cpu").device.type == "cpu"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        bitset.bitset_create(64)
 
 
 def test_device_helper_rules(no_cuda):

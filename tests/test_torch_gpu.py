@@ -452,6 +452,8 @@ def _moved(index, dev):
             v = v.to(dev)
         elif isinstance(v, SortedLists):
             v = SortedLists(*(t.to(dev) for t in v))
+        elif isinstance(v, tuple):  # the packed CAGRA's child_vecs pieces
+            v = tuple(t.to(dev) for t in v)
         kw[f.name] = v
     return type(index)(**kw)
 
@@ -668,3 +670,103 @@ def test_long_tail_brute_force_on_the_card_matches_the_cpu(cuda, metric):
                                 q.to(cuda), 10, tile_size=7000)
     torch.testing.assert_close(cd.cpu(), hd, rtol=RTOL, atol=ATOL)
     ids_match_modulo_ties(ci.cpu().numpy(), hi.numpy(), hd.numpy(), RTOL, ATOL)
+
+
+@pytest.fixture(scope="module")
+def cagra_host():
+    from cuvs_tpu_torch.neighbors import cagra
+
+    x, q = _cloud(21, 8000, 32), _cloud(22, 300, 32)
+    return x, q, cagra.build(x, intermediate_graph_degree=48, graph_degree=24, seed=0,
+                             device="cpu")
+
+
+def test_pack_codes_on_the_card_equal_the_cpu(cuda, cagra_host):
+    """The int8 codes divide by a tensor scale on both devices: bit-identical
+    codes, scale, pieces (three, one padded tail) and child norms."""
+    from cuvs_tpu_torch.neighbors import cagra
+
+    _, _, host = cagra_host
+    for kw in (dict(), dict(_blk=3000, _piece_bytes=8000 * 32 * 8)):
+        h, c = cagra.pack(host, **kw), cagra.pack(_moved(host, cuda), **kw)
+        assert c.dataset_int8.is_cuda and torch.equal(c.dataset_int8.cpu(), h.dataset_int8)
+        assert torch.equal(c.scale.cpu(), h.scale)
+        assert torch.equal(c.child_norms.cpu(), h.child_norms)
+        assert len(c.child_vecs) == len(h.child_vecs)
+        for a, b in zip(c.child_vecs, h.child_vecs):
+            assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("layout", ["packed", "compressed"])
+@pytest.mark.parametrize("compute", [torch.float32, torch.bfloat16])
+def test_cagra_layouts_search_on_the_card_matches_the_cpu(cuda, cagra_host, layout, compute):
+    """The same packed or VPQ index and the same host-drawn seeds: the card's
+    ids equal the CPU's but for near-ties (<= 1%), distances where ids agree."""
+    from cuvs_tpu_torch.neighbors import cagra
+
+    _, q, host = cagra_host
+    ix = cagra.pack(host) if layout == "packed" else cagra.compress(host, vq_n_centers=64,
+                                                                   pq_dim=8)
+    card = _moved(ix, cuda)
+    kw = dict(itopk_size=64, search_width=2, compute_dtype=compute, query_chunk=128, seed=7)
+    hd, hi = cagra.search(ix, torch.from_numpy(q), 10, **kw)
+    cd, ci = cagra.search(card, torch.from_numpy(q).to(cuda), 10, **kw)
+    same = ci.cpu() == hi
+    assert float(same.float().mean()) >= 0.99
+    torch.testing.assert_close(cd.cpu()[same], hd[same], rtol=RTOL, atol=ATOL)
+
+
+def test_robust_prune_on_the_card_equals_the_cpu(cuda):
+    from cuvs_tpu_torch.neighbors import vamana
+
+    rng = np.random.default_rng(23)
+    B, C, d, R = 500, 64, 32, 24
+    vecs = torch.from_numpy(rng.standard_normal((B, C, d)).astype(np.float32))
+    ids = torch.from_numpy(rng.integers(0, 100000, (B, C)).astype(np.int32))
+    dist = torch.from_numpy(np.sort(rng.uniform(1.0, 50.0, (B, C)).astype(np.float32), 1))
+    dist[:, -6:] = float("inf")
+    pts = torch.zeros((B, d))
+    host = vamana._robust_prune(ids, dist, pts, vecs, 1.2, R)
+    card = vamana._robust_prune(ids.to(cuda), dist.to(cuda), pts.to(cuda), vecs.to(cuda), 1.2, R)
+    assert card.is_cuda and torch.equal(card.cpu(), host)
+
+
+def test_scann_chunks_on_the_card_match_one_chunk(cuda):
+    """The AVQ systems summed over row chunks, and SOAR scored in row chunks,
+    against one chunk holding every row (the reference's unchunked form)."""
+    from cuvs_tpu_torch.cluster import kmeans_balanced
+    from cuvs_tpu_torch.neighbors import scann
+
+    x = torch.from_numpy(_blobs(24, 50000, 64)).to(cuda)
+    centers = kmeans_balanced.fit(x, 64, seed=0)
+    labels = kmeans_balanced.predict(x, centers)
+    whole = scann._avq_refine(x, centers, labels, 2.0, chunk=50000)
+    for chunk in (0, 777):
+        torch.testing.assert_close(scann._avq_refine(x, centers, labels, 2.0, chunk=chunk), whole,
+                                   rtol=1e-4, atol=1e-5)
+    one = scann._soar_assign(x, whole, labels, 1.5, chunk=50000)
+    assert torch.equal(scann._soar_assign(x, whole, labels, 1.5, chunk=777), one)
+    host = scann._soar_assign(x.cpu(), whole.cpu(), labels.cpu(), 1.5)
+    assert float((host == one.cpu()).float().mean()) >= 0.999
+
+
+def test_section_zero_entry_points_put_numpy_on_the_card(cuda):
+    """select_k, merge_parts, the bitset constructors, the prefilter from a
+    mask and bitpack: numpy in, a CUDA tensor out."""
+    from cuvs_tpu_torch.core import bitpack, bitset
+    from cuvs_tpu_torch.neighbors import filters
+    from cuvs_tpu_torch.selection import select_k
+
+    rng = np.random.default_rng(25)
+    v = rng.standard_normal((8, 40)).astype(np.float32)
+    ids = rng.integers(0, 1000, (8, 40)).astype(np.int32)
+    mask = v > 0
+    outs = [select_k.select_k(v, 5)[0], select_k.merge_parts([v[:, :20], v[:, 20:]],
+                                                             [ids[:, :20], ids[:, 20:]], 5)[1],
+            bitset.bitset_create(100), bitset.bitset_from_mask(mask[0]),
+            bitset.bitmap_from_mask(mask), filters.from_mask(mask).bits,
+            bitpack.pack(mask.astype(np.int64), 1),
+            bitpack.unpack(rng.integers(0, 1 << 32, (8, 2), dtype=np.uint32), 4, 16)]
+    assert all(t.is_cuda for t in outs)
+    host = bitpack.pack(mask.astype(np.int64), 1, device="cpu")
+    assert torch.equal(outs[6].cpu(), host)

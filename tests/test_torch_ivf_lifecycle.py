@@ -147,7 +147,7 @@ def test_pq_extend_matches_reference(data, codebook_gen, case):
     n = j2.n_rows
     S = t2.pq_dim
     jc = _by_id(j2.lists.ids[:n], np.asarray(
-        bitpack.unpack(np.asarray(j2.sorted_codes[:n]), 6, S)))[0]
+        bitpack.unpack(np.asarray(j2.sorted_codes[:n]), 6, S, device="cpu")))[0]
     tc = _by_id(t2.lists.ids[:n].numpy(), bitpack.unpack(t2.sorted_codes[:n], 6, S).numpy())[0]
     np.testing.assert_array_equal(tc, jc)
     if codebook_gen == "per_subspace":  # the reference pads its word rows to 8

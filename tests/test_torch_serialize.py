@@ -6,7 +6,8 @@ to the same index carried across in memory (``interop``); the port's own
 files round-trip bit for bit, bfloat16 storage included; the JAX package
 loads the port's brute-force, IVF-Flat (non-bf16) and IVF-SQ files and its
 searches agree with the port's to rtol 1e-5 / atol 1e-4, ids equal except at
-ties. Bad headers are refused as the reference refuses them.
+ties; it loads the port's files of the three CAGRA kinds (raw, VPQ, packed)
+with the same arrays. Bad headers are refused as the reference refuses them.
 """
 
 import json
@@ -17,13 +18,14 @@ import pytest
 import torch
 
 from cuvs_tpu.neighbors import brute_force as jax_bf
+from cuvs_tpu.neighbors import cagra as jax_cagra
 from cuvs_tpu.neighbors import ivf_flat as jax_flat
 from cuvs_tpu.neighbors import ivf_pq as jax_pq
 from cuvs_tpu.neighbors import ivf_rabitq as jax_rq
 from cuvs_tpu.neighbors import ivf_sq as jax_sq
 from cuvs_tpu.utils import serialize as jax_serialize
 from cuvs_tpu_torch import interop
-from cuvs_tpu_torch.neighbors import brute_force, ivf_flat, ivf_pq, ivf_rabitq, ivf_sq
+from cuvs_tpu_torch.neighbors import brute_force, cagra, ivf_flat, ivf_pq, ivf_rabitq, ivf_sq
 from cuvs_tpu_torch.utils import serialize
 from tests.torch_parity import ids_match_modulo_ties
 from tests.utils import make_blobs
@@ -88,7 +90,32 @@ _KINDS = {
             j.sorted_frescale, *_lists(j), j.metric, j.window, j.n_rows, j.bits_per_dim,
             j.sorted_codes_t, device="cpu"),
         lambda t, q: ivf_rabitq.search(t, q, 5, n_probes=4, scan_algo="fused")),
+    "cagra": (
+        lambda x: _jax_cagra(x),
+        lambda j: interop.cagra_index_from_numpy(j.dataset, j.dataset_norms, j.graph, j.metric,
+                                                 device="cpu"),
+        lambda t, q: cagra.search(t, q, 5, seed=3)),
+    "cagra_compressed": (
+        lambda x: jax_cagra.compress(_jax_cagra(x), vq_n_centers=16, pq_dim=8),
+        lambda j: interop.cagra_compressed_index_from_numpy(
+            j.vq_centers, j.vq_codes, j.pq_codes, j.pq_codebooks, j.dataset_norms, j.graph,
+            j.metric, device="cpu"),
+        lambda t, q: cagra.search(t, q, 5, seed=3)),
+    "cagra_packed": (  # three pieces of the neighbour axis, keyed .child_vecs[i]
+        lambda x: jax_cagra.pack(_jax_cagra(x), _piece_bytes=1500 * 24 * 6),
+        lambda j: interop.cagra_packed_index_from_numpy(
+            j.graph, j.child_vecs, j.child_norms, j.dataset_int8, j.dataset_norms, j.scale,
+            j.metric, device="cpu"),
+        lambda t, q: cagra.search(t, q, 5, seed=3)),
 }
+
+
+def _jax_cagra(x):
+    return jax_cagra.build(x, intermediate_graph_degree=32, graph_degree=16, seed=0)
+
+
+def _own_cagra(xt):
+    return cagra.build(xt, intermediate_graph_degree=32, graph_degree=16, seed=0)
 
 
 def _same_index(a, b):
@@ -122,7 +149,8 @@ def test_reference_files_load_and_search_identically(tmp_path, data, kind):
 
 
 @pytest.mark.parametrize("kind", ["brute_force", "ivf_flat_bf16", "ivf_pq", "ivf_pq_per_cluster",
-                                  "ivf_sq", "ivf_rabitq"])
+                                  "ivf_sq", "ivf_rabitq", "cagra", "cagra_compressed",
+                                  "cagra_packed"])
 def test_own_index_round_trip(tmp_path, data, kind):
     x, q = data
     xt, qt = torch.from_numpy(x), torch.from_numpy(q)
@@ -133,10 +161,17 @@ def test_own_index_round_trip(tmp_path, data, kind):
            "ivf_pq_per_cluster": lambda: ivf_pq.build(xt, n_lists=8, pq_dim=6, pq_bits=5, seed=0,
                                                       codebook_gen="per_cluster"),
            "ivf_sq": lambda: ivf_sq.build(xt, n_lists=8, seed=0),
-           "ivf_rabitq": lambda: ivf_rabitq.build(xt, n_lists=8, bits_per_dim=3, seed=0)}[kind]()
+           "ivf_rabitq": lambda: ivf_rabitq.build(xt, n_lists=8, bits_per_dim=3, seed=0),
+           # tests/test_serialize.py's test_cagra_compressed_roundtrip and the
+           # packed part of test_int8_and_packed_roundtrip
+           "cagra": lambda: _own_cagra(xt),
+           "cagra_compressed": lambda: cagra.compress(_own_cagra(xt), vq_n_centers=16, pq_dim=8),
+           "cagra_packed": lambda: cagra.pack(_own_cagra(xt), _piece_bytes=1500 * 24 * 6),
+           }[kind]()
     path = str(tmp_path / "own.npz")
     serialize.save(path, own)
     loaded = serialize.load(path, device="cpu")
+    assert type(loaded) is type(own)
     _same_index(loaded, own)
     a, b = _KINDS[kind][2](loaded, qt), _KINDS[kind][2](own, qt)
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
@@ -164,9 +199,45 @@ def test_reference_loads_port_files(tmp_path, data, kind):
     ids_match_modulo_ties(ti.numpy(), np.asarray(ji), np.asarray(jd), 1e-5, 1e-4)
 
 
+@pytest.mark.parametrize("kind", ["cagra", "cagra_compressed", "cagra_packed"])
+def test_reference_loads_port_cagra_files(tmp_path, data, kind):
+    """Each CAGRA kind the port writes loads in the JAX package with the same
+    arrays (the two packages draw other search seeds, so the searches are
+    compared in test_torch_cagra*.py, not here)."""
+    x, _ = data
+    j = _KINDS[kind][0](x)
+    own = _KINDS[kind][1](j)
+    path = str(tmp_path / "own.npz")
+    serialize.save(path, own)
+    back = jax_serialize.load(path)
+    assert type(back) is type(j) and back.metric == j.metric
+    ref = jax_serialize._arrays_of(j)
+    got = jax_serialize._arrays_of(back)
+    assert sorted(ref) == sorted(got)
+    for key, arr in ref.items():
+        assert got[key].dtype == arr.dtype and np.array_equal(got[key], arr), key
+
+
+def test_packed_file_with_one_child_vecs_key_loads(tmp_path, data):
+    """The reference's older packed files hold the child array under one
+    ``.child_vecs`` key (cuvs_tpu/utils/serialize.py:126-129)."""
+    x, q = data
+    pk = cagra.pack(_own_cagra(torch.from_numpy(x)))
+    arrays = serialize._arrays_of(pk, "cagra.PackedIndex")
+    arrays[".child_vecs"] = arrays.pop(".child_vecs[0]")
+    header = {"magic": serialize.MAGIC, "version": serialize.VERSION, "kind": "cagra.PackedIndex",
+              "statics": {"metric": int(pk.metric)}, "arrays": sorted(arrays)}
+    path = tmp_path / "old.npz"
+    np.savez(path, __header__=np.frombuffer(json.dumps(header).encode(), np.uint8),
+             **{f"a{i}": arr for i, (_, arr) in enumerate(sorted(arrays.items()))})
+    back = serialize.load(str(path), device="cpu")
+    _same_index(back, pk)
+    qt = torch.from_numpy(q)
+    assert torch.equal(cagra.search(back, qt, 5)[1], cagra.search(pk, qt, 5)[1])
+
+
 def test_bad_headers_rejected(tmp_path, data):
-    """tests/test_serialize.py:113-135, and the CAGRA kinds name their
-    roadmap item."""
+    """tests/test_serialize.py:113-135."""
     p = tmp_path / "bad.npz"
     np.savez(p, __header__=np.frombuffer(b'{"magic": "evil"}', np.uint8))
     with pytest.raises(ValueError, match="magic"):
@@ -177,7 +248,6 @@ def test_bad_headers_rejected(tmp_path, data):
     with pytest.raises(ValueError, match="expected"):
         serialize.load(path, expected_kind="cagra", device="cpu")
     for kind, version, err, match in (("brute_force", 999, ValueError, "version"),
-                                      ("cagra", 1, NotImplementedError, "CAGRA part 2"),
                                       ("spam", 1, ValueError, "unknown")):
         hdr = {"magic": serialize.MAGIC, "version": version, "kind": kind, "statics": {},
                "arrays": []}
