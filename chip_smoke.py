@@ -105,10 +105,53 @@ same shape): 1,000,000 x 128 f32, 4096 queries, k = 10.
      CAGRA over the same rows and graph;
  29. ScaNN (1024 lists, eta 2.0, lambda 1.5, pq_dim 64 of 8 bits, a bf16
      copy): its seconds split, its peak under 16 GiB above what is held, no
-     SOAR label equal to its primary, the asset directory's round trip.
+     SOAR label equal to its primary, the asset directory's round trip;
+ 30. ``mg.build(x, "brute_force", "sharded")`` on ``[cuda:0] * 4``: four shards
+     of 250,000 rows, four exact-kernel launches a batch (recorded as their own
+     variant), ids equal to phase 2's but at ties;
+ 31. ``mg.build(x, "ivf_flat")``, the distributed build (1984 lists, bf16, one
+     set of centres trained over every row), 64 probes, fused scan: recall not
+     below phase 5's less 0.005;
+ 32. ``mg.build_streaming(algo="ivf_pq")`` from 10 host slices over 4 shards
+     (3, 3, 3 and 1 slices; 256 lists, pq_dim 64 x 8 bits a shard), 50 probes,
+     k = 40, + refine: recall at least 0.80;
+ 33. ``mg.build(x, "ivf_flat", "replicated")`` over 4 replicas (one set of
+     tensors on one card): 4 round-robin calls visit every replica and equal a
+     direct search; the load balancer within 0.005 of its recall;
+ 34. ``mg.build(x, "cagra")``: four shards of 250,000 rows built 64 -> 32, each
+     build timed, itopk 64: recall at least 0.80;
+ 35. ``mg`` save and load of phases 31 and 32: the same header fields and
+     bit-identical searches;
+ 36. k-means, 1024 clusters, 20 iterations, on the 1M rows: ``cluster.kmeans``
+     (seconds of k-means++ and of Lloyd) and ``mg.kmeans_fit`` on 4 shards;
+     the mg loop from the single-card fit's initial centres within 1e-3 of
+     its inertia;
+ 37. ``tiered_index`` over IVF-Flat (phase 10's parameters, ANN tier on the
+     first 900,000 rows, the last 100,000 in the hot tier; the exact kernel on
+     those rows is recorded as its own variant, ``float32-tiered``): recall not below phase 10's less 0.005;
+     save + load bit-identical; compacted, within 0.005 of phase 10's;
+ 38. ``io``: the rows written as .fbin and read back byte-identical, whole and
+     in batches; ``offload.build`` of IVF-PQ (4 shards of 256 lists, pq_dim 64
+     x 8 bits) from the file, its shards in pinned host memory, 50 probes: at
+     most the largest shard + the partials + one shard's search workspace
+     (measured with that shard alone on the card) + 16 MiB above what is held,
+     so no second shard is there; recall at least 0.75; ``build_host_refined``
+     (int8 IVF-Flat) from the
+     file + ``search_refined`` (ratio 4, ``refine_host`` from the file): not
+     below the unrefined search;
+ 39. ``dynamic_batching.wrap`` of phase 2's index (``max_batch_size`` 1024),
+     python and native queues: 4096 one-query requests from 16 threads, every
+     answer phase 2's but at ties, some batch holding two or more requests;
+     requests/s and the latency percentiles printed.
+
+Phases 30-39 are held against the plain versions as soon as they ran (their
+indexes are freed before the next phase); their kernel calls are recorded
+under variants of their own, so phases 1-29's recorded calls stay the
+headline ones.
 
 Launch counters are zeroed just before that run and read just after; every
-kernel of the path must have launched. Then each kernel is held against its
+kernel of the path must have launched. Each variant's line carries its own
+count of wrapper calls in that run (each one launch on the card). Then each kernel is held against its
 plain PyTorch version on the inputs the path gave it, once per variant
 (row dtype, or mode and table type): float pools to rtol 1e-4 / atol 1e-3
 (the same exact products summed in another order; ids may differ only at
@@ -140,6 +183,7 @@ import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -203,11 +247,12 @@ def variant(name, args, kw):
 
 
 @contextlib.contextmanager
-def recording(calls):
-    """Record each wrapper's arguments: the last call per kernel and variant.
-    Yields ``tagged(suffix)``, a context inside which calls are recorded apart,
-    under their variant + suffix, keeping the first call (a build's first
-    batch is a full one)."""
+def recording(calls, counts):
+    """Record each wrapper's arguments: the last call per kernel and variant,
+    and the number of calls per kernel and variant in ``counts``. Yields
+    ``tagged(suffix)``, a context inside which calls are recorded apart, under
+    their variant + suffix, keeping the first call (a build's first batch is a
+    full one)."""
     tag = [""]
 
     @contextlib.contextmanager
@@ -224,6 +269,7 @@ def recording(calls):
 
         def rec(*args, _fn=fn, _name=name, **kw):
             key = (_name, variant(_name, args, kw) + tag[0])
+            counts[key] = counts.get(key, 0) + 1
             if not tag[0] or key not in calls:
                 calls[key] = (args, kw)
             return _fn(*args, **kw)
@@ -346,6 +392,15 @@ def pairwise_inputs(metric, gen, m, d):
     return [torch.randn((m, d), generator=gen) for _ in "xy"]
 
 
+def index_bytes(index) -> int:
+    """Bytes of the tensors an index holds."""
+    from cuvs_tpu_torch.utils.device import map_tensors
+
+    sizes = []
+    map_tensors(index, lambda t: sizes.append(t.numel() * t.element_size()) or t)
+    return sum(sizes)
+
+
 def check_same_ranking(d_a, i_a, d_b, i_b, what, rtol=1e-5):
     """Distances within rtol; ids equal wherever the distance at that rank
     does not tie (within rtol) a neighbouring rank's."""
@@ -376,13 +431,17 @@ def main() -> int:
     from cuvs_tpu_torch.bench.gt import exact_ground_truth, id_recall
     import numpy as np
 
+    from cuvs_tpu_torch import io as cio
+    from cuvs_tpu_torch import mg
     from cuvs_tpu_torch.bench.measure import timed_qps
-    from cuvs_tpu_torch.cluster import kmeans_balanced
+    from cuvs_tpu_torch.cluster import kmeans, kmeans_balanced
     from cuvs_tpu_torch.core import bitpack
     from cuvs_tpu_torch.distance import pairwise
+    from cuvs_tpu_torch.mg import snmg
     from cuvs_tpu_torch.neighbors import (all_neighbors, brute_force, cagra, composite,
-                                          graph_core, hnsw, ivf_flat, ivf_pq, ivf_rabitq, ivf_sq,
-                                          knn_graph, refine, scann, vamana)
+                                          dynamic_batching, graph_core, hnsw, ivf_flat, ivf_pq,
+                                          ivf_rabitq, ivf_sq, knn_graph, offload, refine, scann,
+                                          tiered_index, vamana)
     from cuvs_tpu_torch.neighbors import ivf_scan as nb_ivf_scan
     from cuvs_tpu_torch.ops import _lib, bf_topk, ivf_scan
     from cuvs_tpu_torch.preprocessing import quantize
@@ -408,12 +467,12 @@ def main() -> int:
     print(f"# dataset sift-128-euclidean{' (synthetic)' if ds.synthetic else ''}: "
           f"n={n} d={dim} nq={q.shape[0]} k={K} ({time.time() - t0:.1f} s)")
 
-    results, calls = {}, {}
+    results, calls, counts = {}, {}, {}
     held0 = torch.cuda.memory_allocated(dev)  # the dataset and the queries
     for counter in (bf_topk.LAUNCHES, ivf_scan.LAUNCHES):
         for key in counter:
             counter[key] = 0
-    with recording(calls) as tagged:
+    with recording(calls, counts) as tagged:
         # 1. exact ground truth (fused exact kernel, unfused cross-check)
         t0 = time.time()
         bf = brute_force.build(x, metric=ds.metric)
@@ -978,6 +1037,312 @@ def main() -> int:
                   "equal")
         del sc, back
         phase_peak("scann")
+        # 30-39: multi-GPU and the serving composition, four shards on one card where they shard
+        t30 = time.time()
+        devs = [dev] * 4
+        d2, i2 = results["bf_fused_exact_f32"]["out"]
+
+        def built(label, fn):
+            """Build, print the seconds; the phase's peak is printed by phase_peak."""
+            torch.cuda.synchronize()
+            t0 = time.time()
+            out = fn()
+            torch.cuda.synchronize()
+            secs = time.time() - t0
+            print(f"# {label} build: {secs:.1f} s")
+            return out
+
+        def checked_phase(label, fn, gt=None):
+            """A phase held against the plain versions at once, so its index can go
+            before the next phase. Returns its result."""
+            phase(label, fn, gt)
+            r = results.pop(label)
+            t0 = time.time()
+            with plain_versions():
+                plain_rec = id_recall(fn(q)[1].cpu(), r["gt"])
+            print(f"# {label}: plain-version recall@10={plain_rec:.4f} ({time.time() - t0:.1f} s)")
+            check(r["recall"] >= plain_rec - RECALL_SLACK,
+                  f"{label}: kernel recall {r['recall']:.4f} < plain {plain_rec:.4f} - "
+                  f"{RECALL_SLACK}")
+            return r
+
+        def exact_launches(fn):
+            before = bf_topk.LAUNCHES["bf_topk_exact"]
+            out = fn()
+            torch.cuda.synchronize()
+            return out, bf_topk.LAUNCHES["bf_topk_exact"] - before
+
+        # 30. mg sharded brute force: four shards of 250,000 rows, the exact kernel
+        mgb = built("mg brute_force 4 x 250k", lambda: mg.build(
+            x, "brute_force", "sharded", devices=devs, metric=ds.metric))
+        check([s.size for s in mgb.shards] == [n // 4] * 4, "mg brute force: shard sizes")
+        with tagged("-mg-250k"):
+            (md, mi), launched = exact_launches(lambda: mg.search(mgb, q, K, fused=True))
+            check(launched == 4, f"mg brute force: {launched} exact launches a batch, not 4")
+            check_same_ranking(md, mi, d2, i2, "mg sharded brute force against phase 2")
+            checked_phase("mg_bf_sharded_exact_f32", lambda qq: mg.search(mgb, qq, K, fused=True))
+        print("# mg sharded brute force: four exact launches a batch, ids equal phase 2's but at "
+              "ties")
+        del mgb, md, mi
+        phase_peak("mg brute force")
+        # 31. mg sharded IVF-Flat, distributed build: phase 5's centres, a quarter of the rows each
+        mgi = built("mg ivf_flat 4 shards (distributed)", lambda: mg.build(
+            x, "ivf_flat", "sharded", devices=devs, n_lists=N_LISTS, metric=ds.metric, seed=0,
+            storage_dtype=torch.bfloat16))
+        same_centres = all(torch.equal(s.centers, idx.centers) for s in mgi.shards)
+        print(f"# mg ivf_flat: every shard's centres equal phase 5's: {same_centres}")
+        with tagged("-mg"):
+            r31 = checked_phase(f"mg_ivf_sharded_p{N_PROBES}",
+                                lambda qq: mg.search(mgi, qq, K, params=sp))
+        check(r31["recall"] >= results[f"ivf_fused_p{N_PROBES}"]["recall"] - RECALL_SLACK,
+              "mg sharded IVF-Flat recall more than 0.005 below phase 5's")
+        phase_peak("mg ivf_flat")
+        # 32. mg streaming IVF-PQ from 10 host slices: 3, 3, 3 and 1 slices a shard
+        mgs = built("mg ivf_pq streaming 4 shards", lambda: mg.build_streaming(
+            slices, n // SLICE, devices=devs, n_lists=256, metric=ds.metric, seed=0,
+            algo="ivf_pq", pq_dim=64, pq_bits=8))
+        check([s.n_rows for s in mgs.shards] == [3 * SLICE] * 3 + [SLICE],
+              "mg streaming IVF-PQ: shard sizes")
+        with tagged("-mg"):
+            r32 = checked_phase(f"mg_ivf_pq_stream_p{Q_PROBES}_refine", lambda qq: refine.refine(
+                x, qq, mg.search(mgs, qq, CAND, params=pq_sp[torch.bfloat16])[1], K,
+                metric=ds.metric))
+        check(r32["recall"] >= 0.80,
+              "mg streaming IVF-PQ + refine below recall 0.80")
+        phase_peak("mg ivf_pq streaming")
+        # 33. mg replicated IVF-Flat over 4 replicas: round robin, then load balancer
+        mgr = built("mg ivf_flat replicated x4", lambda: mg.build(
+            x, "ivf_flat", "replicated", devices=devs, n_lists=N_LISTS, metric=ds.metric, seed=0,
+            storage_dtype=torch.bfloat16))
+        check(all(s.sorted_data.data_ptr() == mgr.shards[0].sorted_data.data_ptr()
+                  for s in mgr.shards), "mg replicated: replicas on one card are copies")
+        with tagged("-mg"):
+            dd, di = ivf_flat.search(mgr.shards[0], q, K, sp)
+            visited = set()
+            for _ in range(4):
+                tick = snmg._rr_counter[0]
+                rd, ri = mg.search(mgr, q, K, routing="round_robin", params=sp)
+                visited.add(tick % 4)
+                check(torch.equal(ri, di) and torch.equal(rd, dd),
+                      "mg round robin: ids differ from a direct search of the replica")
+            check(visited == {0, 1, 2, 3}, "mg round robin: 4 calls did not visit every replica")
+            r33 = checked_phase(f"mg_ivf_replicated_lb_p{N_PROBES}",
+                                lambda qq: mg.search(mgr, qq, K, params=sp))
+        direct = id_recall(di.cpu(), gti)
+        print(f"# mg replicated: round robin visited every replica, ids equal a direct search; "
+              f"direct recall {direct:.4f}")
+        check(abs(r33["recall"] - direct) <= RECALL_SLACK,
+              "mg load balancer recall more than 0.005 from a direct search's")
+        del mgr, dd, di, rd, ri
+        phase_peak("mg ivf_flat replicated")
+        # 34. mg sharded CAGRA (the reference's default algo), 64 -> 32 per shard
+        shard_secs, cagra_build = [], cagra.build
+
+        def timed_build(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            out = cagra_build(*a, **kw)
+            torch.cuda.synchronize()
+            shard_secs.append(time.time() - t0)
+            return out
+
+        cagra.build = timed_build
+        try:
+            mgc = built("mg cagra 4 x 250k 64 -> 32", lambda: mg.build(
+                x, "cagra", "sharded", devices=devs, intermediate_graph_degree=64,
+                graph_degree=32, metric=ds.metric, seed=0))
+        finally:
+            cagra.build = cagra_build
+        print("# mg cagra build seconds per shard: " + ", ".join(f"{s:.1f}" for s in shard_secs))
+        cagra_phase("mg_cagra_sharded_itopk64", lambda qq: mg.search(mgc, qq, K, params=cg_sp[64]))
+        check(cg_res["mg_cagra_sharded_itopk64"]["recall"] >= 0.80,
+              "mg sharded CAGRA below recall 0.80")
+        del mgc
+        phase_peak("mg cagra")
+        # 35. mg save and load of phases 31 and 32: bit-identical searches, equal headers
+        with tempfile.TemporaryDirectory() as tmp:
+            for label, mgx, kw, kk in (("ivf_flat", mgi, dict(params=sp), K),
+                                       ("ivf_pq streaming", mgs,
+                                        dict(params=pq_sp[torch.bfloat16]), CAND)):
+                t0 = time.time()
+                path = os.path.join(tmp, label.replace(" ", "_"))
+                snmg.save(path, mgx)
+                back = snmg.load(path, devices=devs)
+                torch.cuda.synchronize()
+                check((back.algo, back.mode, back.n_rows, back.row_offsets)
+                      == (mgx.algo, mgx.mode, mgx.n_rows, mgx.row_offsets),
+                      f"mg {label}: header fields differ after save and load")
+                with tagged("-mg"):
+                    (a, b), (c, e) = mg.search(mgx, q, kk, **kw), mg.search(back, q, kk, **kw)
+                check(torch.equal(a, c) and torch.equal(b, e),
+                      f"mg {label}: search differs after save and load")
+                print(f"# mg {label}: save + load, searches bit-identical ({time.time() - t0:.1f} s)")
+                del back
+        del mgi, mgs
+        phase_peak("mg save and load")
+        # 36. k-means: 1024 clusters, 20 iterations, single card and 4 shards
+        split36 = {}
+        t0 = time.time()
+        with timed_calls([(kmeans, "_kmeans_pp_init"), (kmeans, "_lloyd")], split36):
+            kc, _, k_inertia, k_iter = kmeans.fit(x, n_clusters=1024, max_iter=20, seed=0)
+            torch.cuda.synchronize()
+            sg_s, sg_seed = time.time() - t0, split36["_kmeans_pp_init"][0]
+            c0 = split36["_kmeans_pp_init"][1]
+            t0 = time.time()
+            mgk_c, mgk_inertia = mg.kmeans_fit(x, 1024, devices=devs, max_iter=20, seed=0)
+            torch.cuda.synchronize()
+            mg_s, mg_seed = time.time() - t0, split36["_kmeans_pp_init"][0] - sg_seed
+        print(f"# kmeans 1024 clusters on 1M rows: {sg_s:.2f} s (k-means++ seeding {sg_seed:.2f} "
+              f"s, Lloyd {k_iter} iterations {split36['_lloyd'][0]:.2f} s), inertia "
+              f"{float(k_inertia):.6g}")
+        print(f"# mg kmeans 4 shards: {mg_s:.2f} s (k-means++ seeding on a subsample of 32768 "
+              f"rows {mg_seed:.2f} s, Lloyd 20 iterations at most {mg_s - mg_seed:.2f} s), "
+              f"inertia {float(mgk_inertia):.6g}")
+        t0 = time.time()
+        sg2, _, sg2_inertia, _ = kmeans.fit(x, n_clusters=1024, max_iter=20, init_centers=c0)
+        mg2, _ = mg.kmeans_fit(x, 1024, devices=devs, max_iter=20, init_centers=c0)
+        mg2_cost = float(kmeans.cluster_cost(x, mg2))
+        rel = abs(mg2_cost - float(sg2_inertia)) / float(sg2_inertia)
+        print(f"# mg Lloyd from the single-card fit's initial centres: inertia {mg2_cost:.6g} "
+              f"against {float(sg2_inertia):.6g} (relative {rel:.2e}; {time.time() - t0:.1f} s)")
+        check(rel <= 1e-3, "mg k-means inertia more than 1e-3 from the single-card fit's")
+        del kc, mgk_c, sg2, mg2, c0, split36
+        phase_peak("kmeans")
+        # 37. tiered index over IVF-Flat: ANN tier on 900k rows, 100k in the hot tier
+        ann_params = ivf_flat.IndexParams(n_lists=N_LISTS, metric=ds.metric, seed=0,
+                                          storage_dtype=torch.bfloat16)
+        tix = built("tiered ivf_flat 900k + 100k hot", lambda: tiered_index.extend(
+            tiered_index.build(ivf_flat, x[:N_FIRST], ann_params, min_ann_rows=100_000,
+                               metric=ds.metric), x[N_FIRST:]))
+        check(tix.ann_rows == N_FIRST and tix.bf_data.shape[0] == n - N_FIRST,
+              "tiered: the last 100k rows are not in the hot tier")
+        ext = results[f"ivf_extend_fused_p{N_PROBES}"]["recall"]
+        with tagged("-tiered"):  # the exact kernel's call here is the hot tier's, on 100k rows
+            (td, ti_), launched = exact_launches(lambda: tiered_index.search(tix, q, K, params=sp))
+            check(launched == 1, "tiered: the hot tier did not run the exact kernel once")
+            r37 = checked_phase(f"tiered_ivf_p{N_PROBES}",
+                                lambda qq: tiered_index.search(tix, qq, K, params=sp))
+        check(r37["recall"] >= ext - RECALL_SLACK,
+              "tiered recall more than 0.005 below phase 10's")
+        with tempfile.TemporaryDirectory() as tmp:
+            tiered_index.save(tmp, tix)
+            back = tiered_index.load(tmp)
+            with tagged("-tiered"):
+                bd, bi = tiered_index.search(back, q, K, params=sp)
+            check(torch.equal(bd, td) and torch.equal(bi, ti_),
+                  "tiered: search differs after save and load")
+            del back
+        print("# tiered: save + load, searches bit-identical")
+        t0 = time.time()
+        tix = tiered_index.compact(tix)
+        torch.cuda.synchronize()
+        print(f"# tiered compact: {time.time() - t0:.1f} s")
+        with tagged("-tiered"):
+            r37c = checked_phase(f"tiered_compacted_p{N_PROBES}",
+                                 lambda qq: tiered_index.search(tix, qq, K, params=sp))
+        check(abs(r37c["recall"] - ext) <= RECALL_SLACK,
+              "compacted tiered recall more than 0.005 from phase 10's")
+        del tix, td, ti_
+        phase_peak("tiered")
+        # 38. the host library's dataset files, then offloaded IVF-PQ and the host-refined index
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "base.fbin")
+            base32 = np.ascontiguousarray(base, np.float32)
+            t0 = time.time()
+            cio.write_bin(path, base32)
+            with cio.BinDataset(path) as reader:
+                check(reader.shape == base32.shape, "BinDataset: shape")
+                check(np.array_equal(reader.read(), base32), "BinDataset.read: rows differ")
+                check(np.array_equal(np.concatenate(list(reader.batches(SLICE))), base32),
+                      "BinDataset.batches: rows differ")
+                print(f"# io: write_bin + read + batches of {os.path.getsize(path) / 2**20:.0f} "
+                      f"MiB, byte-identical ({time.time() - t0:.1f} s)")
+                off = built("offload ivf_pq 4 shards from the .fbin", lambda: offload.build(
+                    reader, "ivf_pq", n_shards=4, n_lists=256, pq_dim=64, pq_bits=8,
+                    metric=ds.metric, seed=0))
+                check(all(t.is_pinned() for s in off.shards for t in (s.centers, s.sorted_codes)),
+                      "offload: shard tensors are not in pinned memory")
+                shard_bytes = max(index_bytes(s) for s in off.shards)
+                with tagged("-offload"):
+                    # one shard's search workspace, that shard alone on the card
+                    work = 0
+                    for sub_host in off.shards:
+                        sub = offload._to_device(sub_host, dev)
+                        torch.cuda.synchronize()
+                        held = torch.cuda.memory_allocated(dev)
+                        torch.cuda.reset_peak_memory_stats(dev)
+                        ivf_pq.search(sub, q, K, pq_sp[torch.bfloat16])
+                        torch.cuda.synchronize()
+                        work = max(work, torch.cuda.max_memory_allocated(dev) - held)
+                        del sub
+                    torch.cuda.synchronize()
+                    held = torch.cuda.memory_allocated(dev)
+                    torch.cuda.reset_peak_memory_stats(dev)
+                    od, oi = offload.search(off, q, K, params=pq_sp[torch.bfloat16])
+                    torch.cuda.synchronize()
+                    above = torch.cuda.max_memory_allocated(dev) - held
+                    partials = 4 * NQ * K * 8
+                    print(f"# offload search: peak {above / 2**30:.3f} GiB above the "
+                          f"{held / 2**30:.2f} GiB held; largest shard {shard_bytes / 2**30:.3f} "
+                          f"GiB, one shard's search workspace {work / 2**30:.3f} GiB")
+                    # 16 MiB of slack: a second shard on the card (33 MiB) would break it
+                    check(above <= shard_bytes + partials + work + 2**24,
+                          "offload search: more than one shard + partials + one search's "
+                          "workspace + 16 MiB on the card")
+                    r38 = checked_phase(f"offload_ivf_pq_p{Q_PROBES}", lambda qq: tuple(
+                        torch.from_numpy(a) for a in offload.search(
+                            off, qq, K, params=pq_sp[torch.bfloat16])))
+                check(r38["recall"] >= 0.75,
+                      "offloaded IVF-PQ below recall 0.75")
+                del off, od, oi
+                hr = built("host-refined ivf_flat int8 from the .fbin",
+                              lambda: offload.build_host_refined(
+                                  reader, "ivf_flat", n_lists=N_LISTS, metric=ds.metric, seed=0,
+                                  storage_dtype=torch.int8))
+                with tagged("-host-refined"):
+                    r38u = checked_phase(f"host_refined_ivf_int8_p{N_PROBES}",
+                                         lambda qq: ivf_flat.search(hr.device_index, qq, K, fused8))
+                    r38r = checked_phase(f"host_refined_ivf_int8_p{N_PROBES}_refine",
+                                         lambda qq: offload.search_refined(hr, qq, K,
+                                                                           refine_ratio=4,
+                                                                           params=fused8))
+                check(r38r["recall"] >= r38u["recall"],
+                      "host-refined search: recall below the same index's unrefined search")
+                del hr
+        phase_peak("io and offload")
+        # 39. dynamic batching over phase 2's index: 4096 single-query requests, 16 threads
+        qh = q.cpu().numpy()
+        for backend in ("python", "native"):
+            bsr = dynamic_batching.wrap(brute_force, bf, dim, dynamic_batching.BatchParams(
+                k=K, max_batch_size=1024), backend=backend, fused=True)
+            answers = [None] * NQ
+
+            def client(c, _bsr=bsr, _answers=answers):
+                futs = [(j, _bsr.submit(qh[j])) for j in range(c, NQ, 16)]
+                for j, fut in futs:
+                    _answers[j] = fut.result(timeout=120)
+
+            with tagged("-batched"):
+                threads = [threading.Thread(target=client, args=(c,)) for c in range(16)]
+                t0 = time.time()
+                for th in threads:
+                    th.start()
+                for th in threads:
+                    th.join()
+                secs = time.time() - t0
+            st = bsr.stats()
+            bsr.close()
+            check(all(a is not None for a in answers), f"batched {backend}: unanswered requests")
+            bd_ = torch.from_numpy(np.concatenate([a[0] for a in answers]))
+            bi_ = torch.from_numpy(np.concatenate([a[1] for a in answers]))
+            check_same_ranking(bd_, bi_, d2, i2, f"batched {backend} against phase 2")
+            check(st["max_batch_rows"] > 1, f"batched {backend}: no batch held two requests")
+            print(f"# dynamic batching ({backend}): {NQ} requests from 16 threads in {secs:.2f} s "
+                  f"= {NQ / secs:.0f} requests/s; largest batch {st['max_batch_rows']}; latency "
+                  f"p50 {st['latency_p50_ms']:.2f} ms, p95 {st['latency_p95_ms']:.2f} ms; answers "
+                  f"equal phase 2's but at ties")
+        phase_peak("dynamic batching")
+        print(f"# phases 30-39: {time.time() - t30:.1f} s")
     torch.cuda.synchronize()
     peak = max(*peaks, torch.cuda.max_memory_allocated(dev))
     print(f"# peak device memory: {peak / 2**30:.2f} GiB")
@@ -1014,13 +1379,14 @@ def main() -> int:
             plain_ms, ref = cuda_ms(lambda: getattr(mod, plain)(*args, **kw))
             kind = "int8lut" if var == "pq-int8lut" else "int" if var == "int8" else "float"
             err, same = compare_pools(out, ref, kind)
-            v = dict(ms=ms, plain_ms=plain_ms, max_abs_err=err,
+            v = dict(launches=counts[(name, var)], ms=ms, plain_ms=plain_ms, max_abs_err=err,
                      **roofline.kernel_bound(name, args, kw, out), library_ms=None)
             v["share"] = v["bound_ms"] / ms
             if mod is bf_topk:
                 v["product_ms"] = roofline.product_ms(args[0], args[1])
             shape = "x".join(str(s) for s in out[0].shape)
-            print(f"# {name} [{var}]: pool {shape} matches plain (max abs err {err:.3g}, "
+            print(f"# {name} [{var}], {v['launches']} launches: pool {shape} matches plain "
+                  f"(max abs err {err:.3g}, "
                   f"bit-identical: {same}); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
                   f"bound {v['bound_ms']:.3f} ms ({v['bound_by']}, share {v['share']:.3f})"
                   + (f", cuBLAS product {v['product_ms']:.3f} ms" if "product_ms" in v else ""))

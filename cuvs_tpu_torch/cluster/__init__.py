@@ -1,1 +1,1 @@
-"""Clustering: the balanced k-means IVF trainer."""
+"""Clustering: Lloyd k-means with k-means++ seeding, and the balanced k-means IVF trainer."""

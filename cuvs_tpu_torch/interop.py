@@ -190,3 +190,45 @@ def scann_index_from_numpy(centers, labels, soar_labels, codes, pq_codebooks, re
                        codes_soar=_tensor(codes_soar, device, torch.uint8),
                        bf16_dataset=_tensor(bf16_dataset, device, torch.bfloat16),
                        params=params)
+
+
+def mg_index_from_numpy(shards, row_offsets, algo: str, mode: str, n_rows: int, devices=None):
+    """The port's multi-device index over a reference ``MGIndex``'s parts.
+
+    ``shards`` is the reference's stacked per-shard index (``MGIndex.shards``,
+    or any object with its fields as attributes): every array leaf has a
+    leading [n_shards] axis. Shard s of each leaf goes through the per-algo
+    constructor above (through ``utils.serialize``'s table of them) onto
+    devices[s % len(devices)] (None: every CUDA device); a replicated
+    index's one replica is placed on every device."""
+    import dataclasses
+    import itertools
+
+    from cuvs_tpu_torch.mg import snmg
+    from cuvs_tpu_torch.utils import serialize
+    from cuvs_tpu_torch.utils.device import index_to
+
+    devices = snmg._devices(devices)
+    arrays, statics = {}, {}
+    for f in dataclasses.fields(shards):
+        v = getattr(shards, f.name)
+        key = "." + f.name
+        if v is None:
+            continue
+        if hasattr(v, "_asdict"):  # SortedLists
+            arrays.update({f"{key}.{name}": np.asarray(a) for name, a in v._asdict().items()})
+        elif isinstance(v, tuple):  # the packed CAGRA's child_vecs pieces
+            arrays.update({f"{key}[{i}]": np.asarray(a) for i, a in enumerate(v)})
+        elif hasattr(v, "shape"):
+            arrays[key] = np.asarray(v)
+        else:
+            statics[f.name] = int(v) if hasattr(v, "value") else v
+    n_shards = len(next(iter(arrays.values())))
+    parts = [serialize._build(algo, {key: a[s] for key, a in arrays.items()}, statics, dev)
+             for s, dev in zip(range(n_shards), itertools.cycle(devices))]
+    if mode == "replicated":
+        return snmg.MGIndex(shards=[index_to(parts[0], dev) for dev in devices],
+                            row_offsets=[0] * len(devices), algo=algo, mode=mode,
+                            n_rows=int(n_rows))
+    return snmg.MGIndex(shards=parts, row_offsets=[int(o) for o in np.asarray(row_offsets)],
+                        algo=algo, mode=mode, n_rows=int(n_rows))

@@ -9,6 +9,8 @@ back to the CPU on its own.
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 
@@ -28,3 +30,26 @@ def as_tensor(data, device=None) -> torch.Tensor:
     if isinstance(data, torch.Tensor):
         return data if device is None else data.to(device)
     return torch.as_tensor(data, device=resolve_device(device))
+
+
+def _map(value, fn):
+    if isinstance(value, torch.Tensor):
+        return fn(value)
+    if isinstance(value, tuple) and hasattr(value, "_asdict"):  # SortedLists
+        return type(value)(*(_map(v, fn) for v in value))
+    if isinstance(value, tuple):  # the packed CAGRA's child_vecs pieces
+        return tuple(_map(v, fn) for v in value)
+    return value
+
+
+def map_tensors(index, fn):
+    """A copy of an index (a dataclass) with ``fn`` applied to every tensor it
+    holds: its tensor fields, a SortedLists' arrays and tuples of tensors."""
+    return dataclasses.replace(index, **{f.name: _map(getattr(index, f.name), fn)
+                                         for f in dataclasses.fields(index) if f.init})
+
+
+def index_to(index, device, non_blocking: bool = False):
+    """The index with its tensors on ``device``. A tensor already there is
+    kept, not copied (``Tensor.to`` returns it)."""
+    return map_tensors(index, lambda t: t.to(device, non_blocking=non_blocking))

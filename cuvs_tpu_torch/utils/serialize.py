@@ -9,6 +9,11 @@ array and rebuilds the index through the ``interop`` constructors, which also
 take the reference's padded serving arrays, so each package loads the
 other's files.
 
+An index of several parts (the multi-device, offloaded and tiered indexes)
+is a directory: a JSON header with its own magic (``cuvs_tpu.mg_index``,
+``cuvs_tpu.offload_index``, ``cuvs_tpu.tiered_index``) and version, and one
+file per part (``shard_{s}.npz``, ``ann.npz``) in the format above.
+
 Code words are written as uint32 and read back as int32 with the same bits.
 bfloat16 arrays are written as 2-byte records (what numpy makes of the
 reference's ``ml_dtypes`` bfloat16) and read back bit for bit.
@@ -18,6 +23,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 from typing import Any, Dict
 
 import numpy as np
@@ -164,3 +170,26 @@ def load(path: str, expected_kind: str = None, device=None) -> Any:
             raise ValueError(f"unknown index kind {kind!r}")
         arrays = {name: z[f"a{i}"] for i, name in enumerate(header["arrays"])}
     return _build(kind, arrays, header["statics"], device)
+
+
+def write_dir_header(path: str, name: str, magic: str, fields: Dict[str, Any]) -> None:
+    """Create the directory ``path`` and write its JSON header ``name``."""
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, name), "w") as f:
+        json.dump({"magic": magic, "version": VERSION, **fields}, f)
+
+
+def read_dir_header(path: str, name: str, magic: str) -> Dict[str, Any]:
+    """A directory's JSON header, after checking its magic and version."""
+    with open(os.path.join(path, name)) as f:
+        header = json.load(f)
+    if header.get("magic") != magic:
+        raise ValueError(f"not a {magic} directory (bad magic)")
+    if header.get("version", -1) > VERSION:
+        raise ValueError(f"{magic} version {header['version']} newer than supported {VERSION}")
+    return header
+
+
+def shard_path(path: str, s: int) -> str:
+    """The file of part ``s`` of a sharded index directory."""
+    return os.path.join(path, f"shard_{s}.npz")

@@ -6,12 +6,13 @@ import pytest
 import torch
 
 from cuvs_tpu_torch import interop
-from cuvs_tpu_torch.cluster import kmeans_balanced
+from cuvs_tpu_torch import mg
+from cuvs_tpu_torch.cluster import kmeans, kmeans_balanced
 from cuvs_tpu_torch.core import bitpack, bitset
 from cuvs_tpu_torch.distance import pairwise
 from cuvs_tpu_torch.neighbors import (all_neighbors, brute_force, cagra, filters, graph_core,
                                       ivf_flat, ivf_pq, ivf_rabitq, ivf_sq, knn_graph, nn_descent,
-                                      refine, scann, vamana)
+                                      offload, refine, scann, tiered_index, vamana)
 from cuvs_tpu_torch.preprocessing import quantize
 from cuvs_tpu_torch.selection import select_k
 from cuvs_tpu_torch.utils import device as dev_mod
@@ -83,6 +84,15 @@ _ENTRIES = {
                                                    device=device).graph,
     "scann.build": lambda x, device: scann.build(x, n_lists=4, pq_dim=4, pq_bits=4,
                                                  device=device).codes,
+    "kmeans.fit": lambda x, device: kmeans.fit(x, n_clusters=4, max_iter=3, device=device)[0],
+    "kmeans.predict": lambda x, device: kmeans.predict(x, x[:4], device=device),
+    "kmeans.transform": lambda x, device: kmeans.transform(x, x[:4], device=device),
+    "tiered_index.build": lambda x, device: tiered_index.build(
+        brute_force, x, min_ann_rows=10**6, device=device).bf_data,
+    "tiered_index.search": lambda x, device: tiered_index.search(
+        tiered_index.build(brute_force, x, min_ann_rows=10**6, device=device), x[:4], 2)[0],
+    "offload.build_host_refined": lambda x, device: offload.build_host_refined(
+        x, "brute_force", device=device).device_index.dataset,
 }
 
 
@@ -136,3 +146,26 @@ def test_interop_defaults_to_the_card(no_cuda):
     assert idx.dataset.device.type == "cpu" and idx.graph.device.type == "cpu"
     with pytest.raises(RuntimeError, match="CUDA"):
         interop.cagra_index_from_numpy(_X, norms, _G, "sqeuclidean")
+
+
+def test_mg_entry_points_go_to_the_devices_named(no_cuda):
+    """mg takes a list of devices (a device may repeat); with none named it
+    takes every CUDA device, and raises without one."""
+    idx = mg.build(_X, "brute_force", devices=["cpu"] * 3)
+    assert [s.dataset.device.type for s in idx.shards] == ["cpu"] * 3
+    assert mg.kmeans_fit(_X, 4, devices=["cpu"] * 2, max_iter=2)[0].device.type == "cpu"
+    for call in (lambda: mg.build(_X, "brute_force"), lambda: mg.kmeans_fit(_X, 4),
+                 lambda: mg.build(torch.from_numpy(_X), "brute_force"),
+                 lambda: mg.default_devices()):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+
+
+def test_offload_builds_on_the_card_by_default(no_cuda):
+    shards = offload.build(_X, "brute_force", n_shards=2, device="cpu").shards
+    assert [s.dataset.device.type for s in shards] == ["cpu", "cpu"]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        offload.build(_X, "brute_force", n_shards=2)
+    idx = offload.build(_X, "brute_force", n_shards=2, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        offload.search(idx, _X[:2], 2)

@@ -21,7 +21,7 @@ from cuvs_tpu_torch.neighbors import ivf_scan as nb_ivf_scan
 from cuvs_tpu_torch.ops import bf_topk, ivf_scan
 # pytest puts this directory on sys.path; "tests" itself may name another
 # installed package where JAX is absent
-from torch_parity import pq_scan_case
+from torch_parity import ids_match_modulo_ties, pq_scan_case
 
 torch.set_num_threads(1)
 
@@ -492,8 +492,6 @@ def test_streamed_int8_index_scan_kernel_matches_plain(cuda, monkeypatch):
 def test_unfused_scans_on_the_card_match_the_cpu(cuda, case):
     """cluster_major_scan_tiled (IVF-Flat), cluster_major_scan_pq (IVF-PQ,
     bins) and the IVF-SQ scan: the same call on CUDA and CPU tensors."""
-    from torch_parity import ids_match_modulo_ties
-
     from cuvs_tpu_torch.neighbors import ivf_flat, ivf_pq, ivf_sq
 
     x, q = _blobs(7, 8000, 40), torch.from_numpy(_blobs(8, 200, 40))
@@ -770,3 +768,90 @@ def test_section_zero_entry_points_put_numpy_on_the_card(cuda):
     assert all(t.is_cuda for t in outs)
     host = bitpack.pack(mask.astype(np.int64), 1, device="cpu")
     assert torch.equal(outs[6].cpu(), host)
+
+
+def _mg_on(index, devices):
+    from cuvs_tpu_torch.mg import snmg
+    from cuvs_tpu_torch.utils.device import index_to
+
+    return snmg.MGIndex(shards=[index_to(s, d) for s, d in zip(index.shards, devices)],
+                        row_offsets=index.row_offsets, algo=index.algo, mode=index.mode,
+                        n_rows=index.n_rows)
+
+
+@pytest.mark.parametrize("algo", ["brute_force", "ivf_flat", "ivf_pq"])
+def test_mg_on_a_repeated_card_equals_mg_on_the_cpu(cuda, algo):
+    """Four shards on [cuda] * 4 (a repeated device) against the same shards
+    on the CPU: exact searches agree to rtol 1e-5 with ids equal but at ties;
+    the IVF searches run the fused kernels on the card and their plain
+    versions on the CPU, so >= 99% of (query, rank) ids agree."""
+    from cuvs_tpu_torch import mg
+
+    x, q = _blobs(41, 20001, 64), _blobs(42, 300, 64)
+    kw = {"ivf_flat": dict(n_lists=32, seed=0), "ivf_pq": dict(n_lists=32, pq_dim=32, seed=0)}
+    host = mg.build(x, algo, devices=["cpu"] * 4, **kw.get(algo, {}))
+    card = _mg_on(host, [cuda] * 4)
+    assert all(s.device.type == "cuda" for s in card.shards)
+    skw = {} if algo == "brute_force" else dict(n_probes=8, scan_algo="fused")
+    hd, hi = mg.search(host, torch.from_numpy(q), 10, **skw)
+    cd, ci = mg.search(card, q, 10, **skw)
+    assert ci.is_cuda
+    if algo == "brute_force":
+        torch.testing.assert_close(cd.cpu(), hd, rtol=RTOL, atol=ATOL)
+        ids_match_modulo_ties(ci.cpu().numpy(), hi.numpy(), hd.numpy())
+    else:
+        assert float((ci.cpu() == hi).float().mean()) >= 0.99
+
+
+def test_mg_build_and_kmeans_on_a_repeated_card(cuda):
+    from cuvs_tpu_torch import mg
+    from cuvs_tpu_torch.cluster import kmeans
+
+    x = torch.from_numpy(_blobs(43, 20000, 32)).to(cuda)
+    idx = mg.build(x, "ivf_flat", devices=[cuda] * 4, n_lists=16, seed=0)
+    assert [s.n_rows for s in idx.shards] == [5000] * 4
+    assert all(s.sorted_data.is_cuda for s in idx.shards)
+    init = x[:16]
+    c_mg, _ = mg.kmeans_fit(x, 16, devices=[cuda] * 4, max_iter=10, init_centers=init)
+    c_sg, _, _, _ = kmeans.fit(x, n_clusters=16, init_centers=init, max_iter=10)
+    torch.testing.assert_close(c_mg, c_sg, rtol=1e-4, atol=1e-4)
+    c_pp, inertia = mg.kmeans_fit(x, 16, devices=[cuda] * 4, max_iter=5, seed=0)
+    assert c_pp.is_cuda and bool(torch.isfinite(inertia))
+
+
+def test_offload_shards_sit_in_pinned_memory(cuda):
+    from cuvs_tpu_torch.neighbors import brute_force, offload
+
+    x, q = _blobs(44, 8000, 32), _blobs(45, 64, 32)
+    idx = offload.build(x, "brute_force", n_shards=3)
+    assert all(s.dataset.device.type == "cpu" and s.dataset.is_pinned() for s in idx.shards)
+    d, i = offload.search(idx, q, 10)
+    bd, bi = brute_force.search(brute_force.build(x), q, 10)
+    np.testing.assert_allclose(d, bd.cpu().numpy(), rtol=RTOL, atol=ATOL)
+    ids_match_modulo_ties(i, bi.cpu().numpy(), d)
+
+
+def test_tiered_index_runs_on_the_card(cuda):
+    from cuvs_tpu_torch.neighbors import brute_force, ivf_flat, tiered_index
+    from cuvs_tpu_torch.ops import bf_topk
+
+    x, q = _blobs(46, 12000, 32), _blobs(47, 64, 32)
+    t = tiered_index.build(ivf_flat, x[:10000], ann_params=ivf_flat.IndexParams(n_lists=16),
+                           min_ann_rows=5000)
+    t = tiered_index.extend(t, x[10000:])
+    assert t.bf_data.is_cuda and t.ann_index.centers.is_cuda
+    before = bf_topk.LAUNCHES["bf_topk_exact"]
+    d, i = tiered_index.search(t, q, 10, n_probes=16)
+    assert bf_topk.LAUNCHES["bf_topk_exact"] > before  # the hot tier ran the exact kernel
+    bd, bi = brute_force.search(brute_force.build(x), q, 10)
+    assert float((i == bi).float().mean()) >= 0.99
+
+
+def test_host_library_builds_here(tmp_path):
+    from cuvs_tpu_torch import io as cio
+    from cuvs_tpu_torch.io import native
+
+    assert cio.native_available() and native.library_path().exists()
+    x = _blobs(48, 1000, 17)
+    cio.write_bin(str(tmp_path / "x.fbin"), x)
+    np.testing.assert_array_equal(cio.load_bin(str(tmp_path / "x.fbin")), x)
