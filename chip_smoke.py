@@ -90,14 +90,15 @@ same shape): 1,000,000 x 128 f32, 4096 queries, k = 10.
      bits), searched at itopk 128 alone and + refine from 40 (at least 0.85);
  24. the composite of two exact brute-force halves (the exact kernel twice a
      batch, its calls recorded apart): phase 2's ids but at ties; then
-     CAGRA's logical merge of two halves built 64 -> 32;
- 25. ``build_ace`` (4 partitions, overlap 2, 64 -> 32, the graph spilled to a
-     memmap): a valid graph, its peak beside phase 18's, itopk 64;
- 26. ``build_iterative`` on the first 100,000 rows (32/64, 3 rounds): recall
+     CAGRA's logical merge of two 64 -> 32 halves of the first 500,000 rows;
+ 25. ``build_ace`` on the first 500,000 rows (4 partitions, overlap 2, 64 -> 32,
+     the graph spilled to a memmap): a valid graph, its peak beside phase 18's,
+     itopk 64 against those rows' exact top-10;
+ 26. ``build_iterative`` on the first 25,000 rows (32/64, 3 rounds): recall
      at least 0.50 against those rows' exact top-10; packed, its ids on the
      card and on a CPU copy (>= 99% equal); it and phase 23's index saved and
      loaded: searches bit-identical;
- 27. Vamana at its defaults (R 32, L 64, alpha 1.2) on the first 250,000 rows
+ 27. Vamana at its defaults (R 32, L 64, alpha 1.2) on the first 100,000 rows
      (the script's time limit): ids in [0, n) or -1, no self edge, search at
      itopk 64 against those rows' exact top-10, DiskANN file round trip;
  28. HNSW from phase 18's index with levels linked on the card: level-1 links
@@ -118,8 +119,9 @@ same shape): 1,000,000 x 128 f32, 4096 queries, k = 10.
  33. ``mg.build(x, "ivf_flat", "replicated")`` over 4 replicas (one set of
      tensors on one card): 4 round-robin calls visit every replica and equal a
      direct search; the load balancer within 0.005 of its recall;
- 34. ``mg.build(x, "cagra")``: four shards of 250,000 rows built 64 -> 32, each
-     build timed, itopk 64: recall at least 0.80;
+ 34. ``mg.build(x[:500_000], "cagra")``: four shards of 125,000 rows built
+     64 -> 32, each build timed, itopk 64: recall at least 0.80 against those
+     rows' exact top-10;
  35. ``mg`` save and load of phases 31 and 32: the same header fields and
      bit-identical searches;
  36. k-means, 1024 clusters, 20 iterations, on the 1M rows: ``cluster.kmeans``
@@ -142,7 +144,52 @@ same shape): 1,000,000 x 128 f32, 4096 queries, k = 10.
  39. ``dynamic_batching.wrap`` of phase 2's index (``max_batch_size`` 1024),
      python and native queues: 4096 one-query requests from 16 threads, every
      answer phase 2's but at ties, some batch holding two or more requests;
-     requests/s and the latency percentiles printed.
+     requests/s and the latency percentiles printed;
+ 40. ball cover on the 1M rows (~1000 landmarks): ``knn_query`` of the 4096
+     queries, two passes: recall@10 at least 0.999 against (1), distances the
+     square roots of phase 2's within rtol 1e-3, QPS and the share of (query,
+     cell) pairs pass 2 scans; ``eps_nn`` of 256 queries at eps = the median
+     10th-neighbour distance: ``eps_neighbors``' adjacency but within 1e-4
+     (relative) of eps; ``all_knn_query`` of the first SUB = 100,000 rows: an
+     unfused exact self-search but at ties;
+ 41. ``eps_neighbors`` of 1024 queries over the 1M rows (a [1024, 1M] block);
+ 42. single linkage of the first SUB rows (15 neighbours, 16 clusters): its
+     seconds split (knn graph, Borůvka rounds, repair rounds, dendrogram); the
+     Borůvka forest's edge count and weight equal scipy's MST of the same
+     symmetrized knn edges (rtol 1e-5); n - 1 merges, ascending heights;
+ 43. cross-component NN over phase 42's 16 labels: every edge joins two
+     components, its distance a float64 recomputation's (rtol 1e-4), and no
+     outside row nearer to the smallest component (``torch.cdist``);
+ 44. ``cluster.spectral.fit_predict`` of SUB rows, 8 clusters (its 8-column
+     embedding through LOBPCG): each vector's eigen-residual below 1e-2 and
+     its eigenvalue in [0, 2]; the dense embedding of the first 4096 rows
+     against a float64 ``scipy.linalg.eigh`` on the host (its 10 smallest
+     pairs), up to sign (atol 1e-4, columns whose eigenvalue is 1e-2 from its
+     neighbours');
+ 45. PCA of the 1M rows to 32 components: the explained variance of
+     ``numpy.linalg.eigh`` of the float64 covariance (rtol 1e-4), the
+     components up to sign, the reconstruction error;
+ 46. silhouette of SUB rows under 64 k-means clusters and trustworthiness of
+     phase 45's projection of 10,000 rows, the Gram matrices (4 kernels) of
+     the 4096 queries against SUB rows and KDE (6 kernels) of 1024 queries
+     over the 1M rows: each card against the CPU on a slice;
+ 47. sparse brute force on a TF-IDF-like CSR (SUB x 32,768, 64 non-zeros a
+     row, Zipf columns; 1024 queries alike): inner product and cosine against
+     scipy's product + argsort on the host, L1 over the first 20,000 rows
+     against ``torch.cdist`` of the dense rows; QPS;
+ 48. the C ABI on the card, in subprocesses: the port's C library and
+     ``csrc/capi_card_check.c``, which through ``cuvsTpuInit("gpu")``,
+     ``cuvsTpuIndexBuild`` and ``cuvsTpuIndexSearch`` ({"fused": true}: the
+     exact kernel) returns phase 2's ids but at ties; the untouched
+     ``capi/c_test.c`` (its /tmp paths moved into a temporary directory),
+     started on the host before phase 41 (two threads), walks the whole ABI
+     and prints "C API smoke test PASSED". The kernels and the C library
+     build in threads while the data is made.
+
+Each of phases 40-48 prints its seconds and its device-memory peak above what
+is held, beside the card's name and power limit; they launch none of the four
+kernels in this process (checked), phase 48's driver launches the exact one in
+its own.
 
 Phases 30-39 are held against the plain versions as soon as they ran (their
 indexes are freed before the next phase); their kernel calls are recorded
@@ -185,16 +232,22 @@ import sys
 import tempfile
 import threading
 import time
+import warnings
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 N, NQ, K, CAND = 1_000_000, 4096, 10, 40
 N_LISTS, N_PROBES = 1984, 64  # bench.py's n_lists rule at 1M rows
 Q_LISTS, Q_PROBES = 1024, 50  # IVF-PQ, IVF-RaBitQ, IVF-SQ (bench/configs/*.yaml base)
 N_FIRST, SLICE = 900_000, 100_000  # extend phases: build on the first rows; streaming slices
-SUB = 100_000  # the iterative CAGRA build's rows (phase 26)
-# the Vamana build's rows (phase 27): at 1M its 25 insert rounds took 58 s of a 423 s
-# script on an H100, over the script's 420 s budget
-VAMANA_ROWS = 250_000
+SUB = 100_000  # the rows of the long tail's phases that are quadratic in n or host-bound
+# the rows of CAGRA's merged halves (phase 24), the ACE build (25), the iterative build (26),
+# the Vamana build (27) and the sharded CAGRA (34): at 1M, 1M, 100,000, 250,000 and 1M rows
+# (8.8, 21.3, 36.6, 12.8 and 8.5 s on an H100) they took the script with phases 40-48 past
+# its 420 s budget
+PART_ROWS = 500_000
+ITER_ROWS = 25_000
+L1_ROWS = 20_000  # the rows of phase 47's pointwise-tail (L1) sparse search
+VAMANA_ROWS = 100_000
 FLOAT_RTOL, FLOAT_ATOL, ID_MISMATCH = 1e-4, 1e-3, 1e-3
 RECALL_SLACK = 0.005
 
@@ -401,19 +454,498 @@ def index_bytes(index) -> int:
     return sum(sizes)
 
 
-def check_same_ranking(d_a, i_a, d_b, i_b, what, rtol=1e-5):
-    """Distances within rtol; ids equal wherever the distance at that rank
-    does not tie (within rtol) a neighbouring rank's."""
+def check_same_ranking(d_a, i_a, d_b, i_b, what, rtol=1e-5, atol=0.0):
+    """Distances within rtol (+ atol); ids equal wherever the distance at that
+    rank does not tie (within the same tolerance) a neighbouring rank's."""
     import torch
 
     d_a, d_b = d_a.double().cpu(), d_b.double().cpu()
-    check(torch.allclose(d_a, d_b, rtol=rtol, atol=0), f"{what}: distances differ")
-    close = (d_b[:, 1:] - d_b[:, :-1]).abs() <= rtol * d_b[:, 1:].abs()
+    check(torch.allclose(d_a, d_b, rtol=rtol, atol=atol), f"{what}: distances differ")
+    close = (d_b[:, 1:] - d_b[:, :-1]).abs() <= rtol * d_b[:, 1:].abs() + atol
     tied = torch.zeros_like(d_b, dtype=torch.bool)
     tied[:, 1:] |= close
     tied[:, :-1] |= close
     tied[:, -1] = True  # the last rank may tie a candidate that did not make the cut
     check(bool(((i_a.cpu() == i_b.cpu()) | tied).all()), f"{what}: ids differ at untied ranks")
+
+
+@contextlib.contextmanager
+def calls_of(mod, name, store):
+    """Append the arguments (args, kw) of every call of mod.name to store."""
+    fn = getattr(mod, name)
+
+    def spy(*args, **kw):
+        store.append((args, kw))
+        return fn(*args, **kw)
+
+    setattr(mod, name, spy)
+    try:
+        yield
+    finally:
+        setattr(mod, name, fn)
+
+
+def tfidf_csr(rng, rows, cols=32768, nnz=64, s=1.1, draws=160):
+    """A TF-IDF-like CSR matrix: per row ``nnz`` distinct columns drawn by a
+    Zipf law of exponent ``s`` over the columns (column r has weight
+    1 / (r + 1)^s; draws with replacement, the first ``nnz`` distinct kept:
+    sampling without repeats), values uniform in [0.1, 1) times the column's
+    idf, log(1 / weight share)."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    p = 1.0 / np.arange(1, cols + 1) ** s
+    p /= p.sum()
+    cdf = np.cumsum(p)
+    cdf[-1] = 1.0
+    d = np.searchsorted(cdf, rng.random((rows, draws)))
+    key = np.sort(d * draws + np.arange(draws), axis=1)  # by column, then draw order
+    first = np.ones(key.shape, bool)
+    first[:, 1:] = key[:, 1:] // draws != key[:, :-1] // draws
+    pos = np.sort(np.where(first, key % draws, draws), axis=1)[:, :nnz]
+    check(bool((pos < draws).all()), "tfidf_csr: a row drew fewer distinct columns than nnz")
+    idx = np.sort(np.take_along_axis(d, pos, axis=1), axis=1)
+    vals = (rng.uniform(0.1, 1.0, idx.shape) * -np.log(p[idx])).astype(np.float32)
+    return sp.csr_matrix((vals.reshape(-1), idx.reshape(-1).astype(np.int32),
+                          np.arange(0, rows * nnz + 1, nnz)), shape=(rows, cols))
+
+
+def long_tail(dev, smi, ds, x, q, gti, d2, i2, exact_qps):
+    """Phases 40-48: the long tail on the 1M rows, or on their first SUB rows
+    where a module is quadratic in n or host-bound. Each prints its seconds
+    and its device-memory peak above what is held; any failed check raises."""
+    import numpy as np
+    import scipy.linalg
+    import scipy.sparse as sp
+    import scipy.sparse.csgraph as csg
+    import torch
+
+    from cuvs_tpu_torch import capi
+    from cuvs_tpu_torch.bench.gt import id_recall
+    from cuvs_tpu_torch.cluster import agglomerative, kmeans
+    from cuvs_tpu_torch.cluster import spectral as spectral_cluster
+    from cuvs_tpu_torch.distance import kernels, pairwise
+    from cuvs_tpu_torch.neighbors import (ball_cover, brute_force, cross_component,
+                                          epsilon_neighborhood, knn_graph)
+    from cuvs_tpu_torch.neighbors import sparse_brute_force as sbf
+    from cuvs_tpu_torch.preprocessing import pca
+    from cuvs_tpu_torch.preprocessing import spectral
+    from cuvs_tpu_torch.stats import silhouette_score, trustworthiness_score
+
+    n, dim = x.shape
+    xs = x[:SUB]
+
+    step_peaks = []  # the absolute peaks that step_peak() read before resetting
+
+    @contextlib.contextmanager
+    def phase(label):
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        step_peaks.clear()
+        t0 = time.time()
+        yield
+        torch.cuda.synchronize()
+        peak = (max(step_peaks + [torch.cuda.max_memory_allocated(dev)]) - held) / 2**30
+        print(f"# phase {label}: {time.time() - t0:.1f} s, peak {peak:.2f} GiB above the "
+              f"{held / 2**30:.2f} GiB held ({smi})")
+
+    def synced(fn):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.time() - t0
+
+    def step_peak():
+        """GiB allocated at the peak since the last reset, above what was held
+        then; resets the peak (the phase's own peak keeps it)."""
+        step_peaks.append(torch.cuda.max_memory_allocated(dev))
+        peak = step_peaks[-1] - step_held[0]
+        torch.cuda.synchronize()
+        step_held[0] = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        return peak / 2**30
+
+    step_held = [torch.cuda.memory_allocated(dev)]
+
+    def near_eps_only(a, b, dist, eps, rel, what):
+        differ = a != b
+        check(bool((dist[differ] - eps).abs().le(rel * eps).all()),
+              f"{what}: adjacencies differ away from eps")
+        return int(differ.sum())
+
+    sq_atol = 8 * float(torch.finfo(torch.float32).eps) * 2 * float((x * x).sum(1).max())
+    eps = float(torch.sqrt(d2[:, K - 1].double()).median())
+    t40 = time.time()
+    # 40. ball cover on the 1M rows: build, knn_query (two passes), eps_nn, all_knn_query
+    with phase("40 ball cover"):
+        step_peak()
+        bc, secs = synced(lambda: ball_cover.build(x, seed=0))
+        print(f"# ball cover build: {bc.inner.n_lists} landmarks, window {bc.inner.window}, "
+              f"largest radius {float(bc.radii.max()):.1f} ({secs:.1f} s, peak {step_peak():.2f} "
+              "GiB)")
+        masks = []
+        with calls_of(ball_cover, "_masked_full_scan", masks):
+            (bd, bi), secs = synced(lambda: ball_cover.knn_query(bc, q, K))
+        rec = id_recall(bi.cpu(), gti)
+        share = float(masks[1][0][3].float().mean())
+        cells2 = int(masks[1][0][3].any(0).sum())
+        print(f"# ball cover knn_query, {q.shape[0]} queries, k={K}, two passes: "
+              f"recall@10={rec:.4f} qps={q.shape[0] / secs:.0f} ({secs:.2f} s, peak "
+              f"{step_peak():.2f} GiB); pass 2 scans {share:.4f} of the (query, cell) pairs, "
+              f"{cells2} of {bc.inner.n_lists} cells for some query")
+        check(rec >= 0.999, f"ball cover recall@10 {rec:.4f} below 0.999")
+        check(torch.allclose(bd.double(), torch.sqrt(d2.double()), rtol=1e-3, atol=1e-3),
+              "ball cover distances differ from the square roots of phase 2's beyond rtol 1e-3")
+        qe = q[:256]
+        del masks
+        (adj, deg), secs = synced(lambda: ball_cover.eps_nn(bc, qe, eps))
+        eps_peak = step_peak()
+        (want, wdeg), wsecs = synced(lambda: epsilon_neighborhood.eps_neighbors(qe, x, eps))
+        want_peak = step_peak()
+        dist = pairwise.pairwise_distance(qe, x, metric="euclidean")
+        flips = near_eps_only(adj, want, dist, eps, 1e-4, "ball cover eps_nn against eps_neighbors")
+        check(torch.equal(deg, adj.sum(1, dtype=torch.int32)), "eps_nn degrees")
+        dq = deg.float().quantile(torch.tensor([0.0, 0.5, 1.0], device=dev)).tolist()
+        print(f"# ball cover eps_nn, 256 queries, eps {eps:.3f} (median 10th-neighbour distance): "
+              f"{secs:.2f} s (eps_neighbors {wsecs:.2f} s); equal to eps_neighbors but {flips} "
+              f"entries within 1e-4 of eps; degrees min/median/max {dq[0]:.0f}/{dq[1]:.0f}/"
+              f"{dq[2]:.0f}; peaks: eps_nn {eps_peak:.2f} GiB, eps_neighbors {want_peak:.2f} "
+              f"GiB, the check {step_peak():.2f} GiB")
+        del dist, want, adj, bd, bi
+        step_peak()  # what the freed tensors held is not the next step's baseline
+        bcs, secs = synced(lambda: ball_cover.build(xs, seed=0))
+        (ad, ai), asecs = synced(lambda: ball_cover.all_knn_query(bcs, K))
+        all_peak = step_peak()
+        rows = bcs.inner.sorted_data[:SUB, :dim]
+        bf_sub = brute_force.build(xs)
+        (ed, ei), esecs = synced(lambda: brute_force.search(bf_sub, rows, K))
+        self_peak = step_peak()
+        check_same_ranking(ad.double() ** 2, ai, ed, ei,
+                           "ball cover all_knn_query against an exact self-search", rtol=1e-5,
+                           atol=sq_atol)
+        print(f"# ball cover all_knn_query on {SUB} rows ({bcs.inner.n_lists} landmarks, window "
+              f"{bcs.inner.window}, build {secs:.2f} s): {asecs:.2f} s (peak {all_peak:.2f} GiB), "
+              f"equal to an unfused exact self-search ({esecs:.2f} s, peak {self_peak:.2f} GiB) "
+              f"but at ties (the check's peak {step_peak():.2f} GiB)")
+        del bc, bcs, bf_sub, rows, ad, ai, ed, ei
+    # the C library, its two programs, and c_test started on the host beside phases 41-48
+    # (the whole ABI through cuvsTpuInit("cpu"), two threads): it is collected in phase 48
+    t0 = time.time()
+    capi_tmp = tempfile.TemporaryDirectory()
+    walk = None
+    try:
+        programs = build_capi_programs(capi_tmp.name)
+        walk = subprocess.Popen([programs[1]], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                text=True, cwd=capi_tmp.name,
+                                env=dict(capi.program_env(), OMP_NUM_THREADS="2"))
+        print(f"# C ABI: the port's C library and two programs built, c_test started on the "
+              f"host ({time.time() - t0:.1f} s)")
+        # 41. the epsilon neighbourhood of 1024 queries over the 1M rows ([1024, 1M] f32: 4 GiB)
+        with phase("41 epsilon neighbourhood"):
+            (adj, deg), secs = synced(lambda: epsilon_neighborhood.eps_neighbors(q[:1024], x, eps))
+            check(adj.shape == (1024, n) and torch.equal(deg, adj.sum(1, dtype=torch.int32)),
+                  "eps_neighbors: shape or degrees")
+            print(f"# eps_neighbors 1024 x {n}: {secs:.2f} s, mean degree "
+                  f"{float(deg.float().mean()):.1f}")
+            del adj, deg
+        # 42. single linkage of the first SUB rows (15 neighbours, 16 clusters)
+        with phase("42 single linkage"):
+            split = {}
+            targets = [(knn_graph, "build_knn_graph"), (agglomerative, "_boruvka_forest"),
+                       (agglomerative, "_boruvka_round"), (agglomerative, "_connect_smallest"),
+                       (agglomerative, "_mst_edges")]
+            with timed_calls(targets, split):
+                sl, secs = synced(lambda: agglomerative.single_linkage(xs, n_clusters=16,
+                                                                       n_neighbors=15))
+            sec = {key: v[0] for key, v in split.items()}
+            repair = split.get("_connect_smallest", (0.0, None, 0))
+            rest = sec["_mst_edges"] - sec["build_knn_graph"] - sec["_boruvka_forest"] - repair[0]
+            print(f"# single linkage {SUB} rows: {secs:.1f} s = knn graph "
+                  f"{sec['build_knn_graph']:.2f} + Borůvka {sec['_boruvka_forest']:.2f} "
+                  f"({split['_boruvka_round'][2]} rounds) + "
+                  f"repair {repair[0]:.2f} ({repair[2]} rounds) + the rest of the MST {rest:.2f} + "
+                  f"dendrogram {secs - sec['_mst_edges']:.2f}")
+            nbrs, dists = split["build_knn_graph"][1]
+            kk = nbrs.shape[1]
+            u = np.repeat(np.arange(SUB), kk)
+            v = nbrs.cpu().numpy().reshape(-1)
+            w = np.maximum(dists.float().cpu().numpy().reshape(-1), 1e-30)
+            mask = split["_boruvka_forest"][1].cpu().numpy()
+            g = sp.csr_matrix((w.astype(np.float64), (u, v)), shape=(SUB, SUB))
+            g = g.maximum(g.T)
+            n_comp = csg.connected_components(g, directed=False)[0]
+            mst_w = float(csg.minimum_spanning_tree(g).sum())
+            forest_w = float(w[mask].astype(np.float64).sum())
+            print(f"# Borůvka forest: {int(mask.sum())} edges, weight {forest_w:.6g}; scipy's "
+                  f"MST of the symmetrized knn edges: {SUB - n_comp} edges ({n_comp} components), weight "
+                  f"{mst_w:.6g}")
+            check(int(mask.sum()) == SUB - n_comp,
+                  "Borůvka forest: edge count differs from scipy's")
+            check(abs(forest_w - mst_w) <= 1e-5 * mst_w,
+                  "Borůvka forest: weight differs from scipy's")
+            check(sl.dendrogram.shape == (SUB - 1, 2) and len(sl.distances) == SUB - 1,
+                  "single linkage: not n - 1 merges")
+            check(bool((np.diff(sl.distances) >= 0).all()), "single linkage: heights do not ascend")
+            check(len(np.unique(sl.labels)) == 16, "single linkage: not 16 labels")
+            del nbrs, dists, split
+        # 43. cross-component nearest neighbours over phase 42's 16 labels
+        with phase("43 cross-component NN"):
+            edges, secs = synced(lambda: cross_component.cross_component_nn(xs, sl.labels))
+            src, dst = edges[:, 0].astype(np.int64), edges[:, 1].astype(np.int64)
+            check(edges.shape == (16, 3) and bool((sl.labels[src] != sl.labels[dst]).all()),
+                  "cross-component edges: an edge within one component")
+            xh = xs.double().cpu().numpy()
+            exact = ((xh[src] - xh[dst]) ** 2).sum(1)
+            check(np.allclose(edges[:, 2], exact, rtol=1e-4), "cross-component distances differ "
+                  "from a float64 recomputation")
+            sizes = np.bincount(sl.labels)
+            c = int(np.argmin(sizes))
+            inside = torch.from_numpy(np.flatnonzero(sl.labels == c)).to(dev)
+            outside = torch.from_numpy(np.flatnonzero(sl.labels != c)).to(dev)
+            nearest = float(torch.cdist(xs[inside].double(), xs[outside].double()).min()) ** 2
+            check(nearest >= edges[c, 2] * (1 - 1e-4), "cross-component: an outside row is nearer "
+                  "than the smallest component's edge")
+            print(f"# cross_component_nn over 16 components (sizes {sizes.min()}..{sizes.max()}): "
+                  f"{secs:.2f} s; every edge joins two components, distances = float64 "
+                  f"recomputation; no outside row nearer to component {c} ({sizes[c]} rows)")
+        # 44. spectral embedding (LOBPCG at this n) and spectral clustering of the first SUB rows
+        with phase("44 spectral"):
+            split = {}
+            with timed_calls([(knn_graph, "build_knn_graph"), (spectral, "_lobpcg_standard"),
+                              (kmeans, "fit")], split):
+                (labels, emb), secs = synced(lambda: spectral_cluster.fit_predict(xs, 8, seed=0))
+            theta, u, iters = split["_lobpcg_standard"][1]
+            print(f"# spectral fit_predict {SUB} rows, 8 clusters: {secs:.1f} s (knn graph "
+                  f"{split['build_knn_graph'][0]:.1f}, LOBPCG "
+                  f"{split['_lobpcg_standard'][0]:.1f} s for "
+                  f"{iters} iterations, k-means {split['fit'][0]:.1f})")
+            check(emb.shape == (SUB, 8) and bool(torch.isfinite(emb).all()), "spectral embedding")
+            check(int(labels.min()) >= 0 and int(labels.max()) < 8, "spectral labels")
+            nbrs = split["build_knn_graph"][1][0].long()
+            rows_ = torch.arange(SUB, device=dev).repeat_interleave(nbrs.shape[1])
+            s_, d_ = torch.cat([rows_, nbrs.reshape(-1)]), torch.cat([nbrs.reshape(-1), rows_])
+            dinv = 1.0 / torch.sqrt(torch.clamp_min(torch.zeros(SUB, device=dev).index_add_(
+                0, s_, torch.ones_like(s_, dtype=torch.float32)), 1.0))
+            order = torch.argsort(-theta, stable=True)
+            uu = u[:, order][:, 1:9].double()
+            mv = uu + dinv[:, None].double() * torch.zeros_like(uu).index_add_(
+                0, s_, (uu * dinv[:, None].double())[d_])  # (2I - L_norm) u
+            th = theta[order][1:9].double()
+            resid = torch.linalg.norm(th[None, :] * uu - mv, dim=0) / torch.linalg.norm(uu, dim=0)
+            lam = 2.0 - th
+            print(f"# spectral eigenvalues of L_norm {', '.join(f'{float(v):.5f}' for v in lam)}; "
+                  f"residuals |L v - lambda v| / |v| max {float(resid.max()):.2e}")
+            check(bool((resid < 1e-2).all()), "spectral: an eigen-residual of 1e-2 or more")
+            check(bool(((lam >= -1e-5) & (lam <= 2 + 1e-5)).all()),
+                  "spectral: an eigenvalue outside [0, 2]")
+            del split, nbrs, s_, d_, uu, mv
+            x4 = x[:4096]
+            dense, secs = synced(lambda: spectral.spectral_embedding(x4, n_components=8))
+            src, dst = spectral._sym_knn_edges(x4, 15, "euclidean")
+            adj = np.zeros((4096, 4096))
+            adj[src.cpu().numpy(), dst.cpu().numpy()] = 1.0
+            adj = np.maximum(adj, adj.T)
+            dh = 1.0 / np.sqrt(np.maximum(adj.sum(1), 1e-12))
+            t0 = time.time()
+            # float64 LAPACK (dsyevr) on the host, the 10 smallest pairs only
+            evals, evecs = scipy.linalg.eigh(np.eye(4096) - dh[:, None] * adj * dh[None, :],
+                                             subset_by_index=[0, 9])
+            host_s = time.time() - t0
+            ref = evecs[:, 1:9] * dh[:, None]
+            ref /= np.maximum(np.linalg.norm(ref, axis=0, keepdims=True), 1e-12)
+            got = dense.double().cpu().numpy()
+            # an f32 eigenvector is off by about eps * |L| / gap (Davis-Kahan): columns whose
+            # eigenvalue is 1e-2 from its neighbours' are held to atol 1e-4
+            gaps = np.diff(evals[:10])
+            sep = [c for c in range(8) if min(gaps[c], gaps[c + 1]) > 1e-2]
+            errs = [float(np.abs(np.sign((got[:, c] * ref[:, c]).sum()) * got[:, c]
+                                 - ref[:, c]).max()) for c in sep]
+            print(f"# dense spectral embedding of 4096 rows ({secs:.2f} s) against "
+                  f"scipy.linalg.eigh in float64 on the host ({host_s:.1f} s): "
+                  f"{len(sep)} of 8 columns with separated eigenvalues, max abs error up to sign "
+                  f"{max(errs, default=0.0):.2e}")
+            check(len(sep) > 0 and max(errs) <= 1e-4, "dense spectral embedding differs from the "
+                  "host's float64 eigh beyond atol 1e-4")
+        # 45. PCA of the 1M rows to 32 components
+        with phase("45 PCA"):
+            p, secs = synced(lambda: pca.fit(x, 32))
+            xd = x.double()
+            xc = xd - xd.mean(0)
+            w64, v64 = np.linalg.eigh((xc.T @ xc / (n - 1)).cpu().numpy())
+            del xd, xc
+            w64, v64 = w64[::-1][:32], v64[:, ::-1][:, :32]
+            check(np.allclose(p.explained_variance.double().cpu().numpy(), w64, rtol=1e-4),
+                  "PCA explained variance differs from the float64 covariance's eigenvalues")
+            comp = p.components.double().cpu().numpy()
+            sep = np.ones(32, bool)
+            gaps = np.abs(np.diff(w64)) > 1e-3 * w64[0]
+            sep[:-1] &= gaps
+            sep[1:] &= gaps
+            signs = np.sign((comp * v64.T).sum(1))
+            cerr = float(np.abs(comp * signs[:, None] - v64.T)[sep].max())
+            recon = pca.inverse_transform(p, pca.transform(p, x))
+            rel = float(torch.linalg.norm(recon - x) / torch.linalg.norm(x - p.mean))
+            print(f"# PCA {n} x {dim} -> 32: {secs:.2f} s; explained variance = float64 eigh "
+                  f"(rtol 1e-4); {int(sep.sum())} separated components up to sign, max abs error "
+                  f"{cerr:.2e}; relative reconstruction error {rel:.4f}")
+            check(cerr <= 1e-3, "PCA components differ from float64 eigh's beyond 1e-3")
+            del recon
+        # 46. silhouette, trustworthiness, the Gram kernels and KDE, card against the CPU
+        with phase("46 stats and kernels"):
+            _, klabels, _, _ = kmeans.fit(xs, n_clusters=64, seed=0)
+            sil, secs = synced(lambda: silhouette_score(xs, klabels, 64))
+            s_card = float(silhouette_score(xs[:20000], klabels[:20000], 64))
+            s_cpu = float(silhouette_score(xs[:20000].cpu(), klabels[:20000].cpu(), 64))
+            check(abs(s_card - s_cpu) <= 1e-4 * abs(s_cpu), "silhouette: card differs from the CPU")
+            emb10 = pca.transform(p, x[:10000])
+            tw, tsecs = synced(lambda: trustworthiness_score(x[:10000], emb10))
+            tw_cpu = float(trustworthiness_score(x[:10000].cpu(), emb10.cpu()))
+            check(abs(float(tw) - tw_cpu) <= 1e-5 * tw_cpu,
+                  "trustworthiness: card differs from the CPU")
+            print(f"# silhouette of {SUB} rows under 64 k-means clusters {float(sil):.5f} "
+                  f"({secs:.2f} s; its first 20,000 rows: card {s_card:.6f}, CPU {s_cpu:.6f}); "
+                  "trustworthiness of the PCA-32 "
+                  f"projection of 10,000 rows {float(tw):.6f} ({tsecs:.2f} s; = CPU)")
+            gamma = 1.0 / float((xs * xs).sum(1).mean())
+            gram_kw = {kernels.KernelType.LINEAR: {},
+                       kernels.KernelType.POLYNOMIAL: dict(gamma=gamma, coef0=1.0, degree=3),
+                       kernels.KernelType.RBF: dict(gamma=1.0 / eps ** 2),
+                       kernels.KernelType.TANH: dict(gamma=gamma, coef0=0.1)}
+            times = []
+            for kern, kw in gram_kw.items():
+                g_, secs = synced(lambda: kernels.gram_matrix(q, xs, kern, **kw))
+                ref = kernels.gram_matrix(q[:16].cpu(), xs.cpu(), kern, **kw)
+                scale = float(ref.abs().max())
+                check(g_.shape == (q.shape[0], SUB) and torch.allclose(
+                    g_[:16].cpu(), ref, rtol=1e-5, atol=1e-6 * scale), f"gram {kern.name}: card "
+                    "differs from the CPU")
+                times.append(f"{kern.name} {secs * 1e3:.1f} ms")
+                del g_
+            print(f"# gram matrices 4096 x {SUB} ({', '.join(times)}), rows 0-15 = CPU")
+            times = []
+            xh_all = x.cpu()
+            for kern in kernels.DensityKernelType:
+                dens, secs = synced(lambda: kernels.kde(q[:1024], x, bandwidth=eps, kernel=kern))
+                ref = kernels.kde(q[:8].cpu(), xh_all, bandwidth=eps, kernel=kern)
+                # Tophat steps at the bandwidth: a sample within rounding of it may count either way
+                at_edge = 0.0
+                if kern == kernels.DensityKernelType.Tophat:
+                    rel = pairwise.pairwise_distance(q[:8], x, metric="euclidean") / eps - 1.0
+                    at_edge = float(rel.abs().le(1e-5).sum(1).max())
+                check(torch.allclose(dens[:8].cpu(), ref, rtol=1e-5, atol=at_edge),
+                      f"kde {kern.name}: card differs from the CPU")
+                times.append(f"{kern.name} {secs * 1e3:.1f} ms")
+            print(f"# kde of 1024 queries over {n} rows, bandwidth {eps:.3f} ({', '.join(times)}), "
+                  "queries 0-7 = CPU")
+            del xh_all, dens, emb10
+        # 47. sparse brute force on a TF-IDF-like CSR (100,000 x 32,768, 64 non-zeros a row)
+        with phase("47 sparse brute force"):
+            rng = np.random.default_rng(0)
+            t0 = time.time()
+            xcsr = tfidf_csr(rng, SUB)
+            qcsr = tfidf_csr(rng, 1024)
+            print(f"# TF-IDF-like CSR {xcsr.shape[0]} x {xcsr.shape[1]}, {xcsr.nnz} non-zeros, "
+                  f"1024 queries, Zipf 1.1 columns ({time.time() - t0:.1f} s)")
+            nh = 128
+            for metric in ("inner_product", "cosine"):
+                index = sbf.from_scipy(xcsr, metric=metric)
+                (sd, si), secs = synced(lambda: sbf.search(index, qcsr.indptr, qcsr.indices,
+                                                           qcsr.data, K))
+                dots = (qcsr[:nh] @ xcsr.T).toarray().astype(np.float64)
+                if metric == "cosine":
+                    qn = np.sqrt(qcsr[:nh].multiply(qcsr[:nh]).sum(1).A)
+                    xn = np.sqrt(xcsr.multiply(xcsr).sum(1).A).T
+                    hd = 1.0 - dots / np.maximum(qn * xn, 1e-30)
+                else:
+                    hd = -dots
+                hi = np.argsort(hd, axis=1, kind="stable")[:, :K]
+                hdk = np.take_along_axis(hd, hi, axis=1)
+                got = sd[:nh].double()
+                check_same_ranking(-got if metric == "inner_product" else got, si[:nh],
+                                   torch.from_numpy(hdk), torch.from_numpy(hi),
+                                   f"sparse {metric} against scipy's product", rtol=1e-5,
+                                   atol=1e-6)
+                print(f"# sparse brute force {metric}, 1024 queries, k={K}: qps={1024 / secs:.0f} "
+                      f"({secs:.2f} s); queries 0-{nh - 1} = scipy's product + argsort but at ties")
+                del index, dots
+            index = sbf.from_scipy(xcsr[:L1_ROWS], metric="l1")
+            q256 = qcsr[:256]
+            (sd, si), secs = synced(lambda: sbf.search(index, q256.indptr, q256.indices,
+                                                       q256.data, K))
+            with warnings.catch_warnings():  # torch's sparse CSR tensors are "beta"
+                warnings.simplefilter("ignore", UserWarning)
+                dense_x = torch.sparse_csr_tensor(index.indptr.cpu(), index.indices.cpu(),
+                                                  index.data.cpu(), size=(index.size, index.n_cols),
+                                                  check_invariants=True).to(dev).to_dense()
+            dense_q = torch.from_numpy(q256.toarray()).to(dev)
+            cd = torch.cdist(dense_q, dense_x, p=1.0)
+            cv, ci = torch.sort(cd, dim=1, stable=True)
+            check_same_ranking(sd, si, cv[:, :K], ci[:, :K], "sparse l1 against torch.cdist",
+                               rtol=1e-5, atol=1e-6)
+            print(f"# sparse brute force l1 (the pointwise tail), 256 queries x {index.size} rows: "
+                  f"qps={256 / secs:.0f} ({secs:.2f} s); = torch.cdist(p=1) of the dense rows "
+                  "but at ties")
+            del index, dense_x, dense_q, cd, cv, ci
+        print(f"# phases 40-47: {time.time() - t40:.1f} s")
+        with phase("48 C ABI"):
+            capi_phase(capi_tmp.name, programs[0], walk, t0, x, q, ds, d2, i2, exact_qps)
+    finally:
+        if walk is not None and walk.poll() is None:
+            walk.kill()
+            walk.wait()
+        capi_tmp.cleanup()
+
+
+def build_capi_programs(tmp):
+    """The port's C library and, in ``tmp``, the two programs of phase 48:
+    ``csrc/capi_card_check.c`` and a copy of the untouched ``capi/c_test.c``
+    whose /tmp/capi_ paths point into ``tmp``. Returns their paths."""
+    from cuvs_tpu_torch import capi
+
+    driver = capi.build_program(os.path.join(HERE, "cuvs_tpu_torch", "csrc", "capi_card_check.c"),
+                                os.path.join(tmp, "capi_card_check"))
+    with open(os.path.join(HERE, "capi", "c_test.c")) as f:
+        src = f.read()
+    with open(os.path.join(tmp, "c_test.c"), "w") as f:
+        f.write(src.replace("/tmp/capi_", os.path.join(tmp, "capi_")))
+    return driver, capi.build_program(os.path.join(tmp, "c_test.c"), os.path.join(tmp, "c_test"))
+
+
+def capi_phase(tmp, driver, walk, t_walk, x, q, ds, d2, i2, exact_qps):
+    """Phase 48: the C ABI on the card, in a subprocess (the port's C library
+    embeds libpython, so it is never loaded into this process), then the
+    c_test process started before phase 41."""
+    import numpy as np
+    import torch
+
+    from cuvs_tpu_torch import capi
+    from cuvs_tpu_torch.io import native
+
+    base, queries = os.path.join(tmp, "base.fbin"), os.path.join(tmp, "queries.fbin")
+    native.write_bin(base, x.cpu().numpy())
+    native.write_bin(queries, q.cpu().numpy())
+    ids, secs_path = os.path.join(tmp, "ids.bin"), os.path.join(tmp, "secs.txt")
+    t0 = time.time()
+    r = subprocess.run([driver, base, queries, ds.metric, str(K), ids, secs_path],
+                       capture_output=True, text=True, env=capi.program_env(), timeout=300)
+    driver_s = time.time() - t0
+    check(r.returncode == 0, f"capi_card_check failed ({r.returncode}): {r.stdout} {r.stderr}")
+    got = torch.from_numpy(np.fromfile(ids, np.int32).reshape(q.shape[0], K))
+    with open(secs_path) as f:
+        secs = float(f.read())
+    same = float((got == i2.cpu()).float().mean())
+    check_same_ranking(d2, got, d2, i2, "the C ABI's fused search against phase 2")
+    print(f"# C ABI on the card: cuvsTpuInit(\"gpu\"), brute-force build + fused search of "
+          f"{q.shape[0]} queries through cuvsTpuIndexSearch in {secs * 1e3:.1f} ms (phase 2's "
+          f"search {q.shape[0] / exact_qps * 1e3:.1f} ms); ids = phase 2's but at ties "
+          f"({same:.4f} equal; process {driver_s:.1f} s)")
+    out, err = walk.communicate(timeout=300)
+    check(walk.returncode == 0 and "C API smoke test PASSED" in out,
+          f"c_test failed ({walk.returncode}): {out[-2000:]} {err[-2000:]}")
+    print(f"# capi/c_test.c against the port's library (cuvsTpuInit(\"cpu\"), the whole ABI): "
+          f"C API smoke test PASSED ({time.time() - t_walk:.1f} s after it started)")
 
 
 def main() -> int:
@@ -431,6 +963,7 @@ def main() -> int:
     from cuvs_tpu_torch.bench.gt import exact_ground_truth, id_recall
     import numpy as np
 
+    from cuvs_tpu_torch import capi
     from cuvs_tpu_torch import io as cio
     from cuvs_tpu_torch import mg
     from cuvs_tpu_torch.bench.measure import timed_qps
@@ -453,10 +986,18 @@ def main() -> int:
                           "--format=csv,noheader", "-i", "0"],
                          capture_output=True, text=True, check=True).stdout.strip()
     print(smi)
-    t0 = time.time()
-    _lib.lib()
-    print(f"# build: {time.time() - t0:.1f} s (nvcc, sm_90a) -> {_lib.library_path().name}")
+    # the kernels (nvcc) and the port's C library (c++) build while the data is made
+    build_s = {}
 
+    def build(name, fn):
+        t0 = time.time()
+        fn()
+        build_s[name] = time.time() - t0
+
+    builders = [threading.Thread(target=build, args=("kernels", _lib.lib)),
+                threading.Thread(target=build, args=("C library", capi.build))]
+    for th in builders:
+        th.start()
     t0 = time.time()
     ds = datasets.load("sift-128-euclidean", max_rows=N)
     # float32 rows, as the queries: the stand-in is float64 where numpy 2 runs (the reference's
@@ -466,6 +1007,13 @@ def main() -> int:
     n, dim = x.shape
     print(f"# dataset sift-128-euclidean{' (synthetic)' if ds.synthetic else ''}: "
           f"n={n} d={dim} nq={q.shape[0]} k={K} ({time.time() - t0:.1f} s)")
+    for th in builders:
+        th.join()
+    _lib.lib()  # a build that failed in its thread is retried here, and raises
+    capi.build()
+    print(f"# build: {build_s.get('kernels', float('nan')):.1f} s (nvcc, sm_90a) -> "
+          f"{_lib.library_path().name}; the port's C library "
+          f"{build_s.get('C library', float('nan')):.1f} s (c++) -> {capi.library_path().name}")
 
     results, calls, counts = {}, {}, {}
     held0 = torch.cuda.memory_allocated(dev)  # the dataset and the queries
@@ -883,42 +1431,48 @@ def main() -> int:
             phase("composite_bf_exact_f32", lambda qq: comp.search(qq, K, fused=True))
         print("# composite of two brute-force halves: ids equal phase 2's but at ties")
         del cd, ci
+        gt_part = brute_force.search(brute_force.build(x[:PART_ROWS], metric=ds.metric), q,
+                                     K)[1].cpu().numpy()
         t0 = time.time()
         halves = [cagra.build(part, intermediate_graph_degree=64, graph_degree=32,
                               build_algo="auto", metric=ds.metric, seed=0)
-                  for part in (x[:half], x[half:])]
+                  for part in (x[:PART_ROWS // 2], x[PART_ROWS // 2:PART_ROWS])]
         cm = cagra.merge(halves, strategy="logical")
         torch.cuda.synchronize()
-        print(f"# cagra halves 64 -> 32, built and merged: {time.time() - t0:.1f} s")
-        cagra_phase("cagra_merged_logical_itopk64",
-                    lambda qq: cm.search(qq, K, params=cg_sp[64]))
+        print(f"# cagra halves of the first {PART_ROWS} rows 64 -> 32, built and merged: "
+              f"{time.time() - t0:.1f} s")
+        cagra_phase(f"cagra_merged_logical_{PART_ROWS // 1000}k_itopk64",
+                    lambda qq: cm.search(qq, K, params=cg_sp[64]), gt=gt_part)
         del halves, cm
         phase_peak("composite and merge")
-        # 25. ACE: 4 partitions, overlap 2, 64 -> 32, the graph spilled to a .npy memmap
+        # 25. ACE on the first PART_ROWS rows: 4 partitions, overlap 2, 64 -> 32, the graph
+        # spilled to a .npy memmap
         t0 = time.time()
         with tempfile.TemporaryDirectory() as tmp:
-            ace = cagra.build_ace(x, cagra.AceParams(build_dir=tmp))
+            ace = cagra.build_ace(x[:PART_ROWS], cagra.AceParams(build_dir=tmp))
             torch.cuda.synchronize()
             spilled = os.path.getsize(os.path.join(tmp, "ace_graph.npy"))
-        print(f"# cagra build_ace 4 partitions 64 -> 32: {time.time() - t0:.1f} s, graph file "
-              f"{spilled / 2**20:.0f} MiB")
-        check(ace.graph.shape == (n, 32), "ace graph shape")
-        check_graph(ace.graph, n, "ace graph")
+        print(f"# cagra build_ace {PART_ROWS} rows, 4 partitions 64 -> 32: "
+              f"{time.time() - t0:.1f} s, graph file {spilled / 2**20:.0f} MiB")
+        check(ace.graph.shape == (PART_ROWS, 32), "ace graph shape")
+        check_graph(ace.graph, PART_ROWS, "ace graph")
         phase_peak("cagra build_ace")
-        print(f"# cagra build_ace peak {peaks[-1] / 2**30:.2f} GiB against phase 18's build "
-              f"{build_peak18 / 2**30:.2f} GiB")
-        cagra_phase("cagra_ace_itopk64", lambda qq: cagra.search(ace, qq, K, cg_sp[64]))
+        print(f"# cagra build_ace peak {peaks[-1] / 2**30:.2f} GiB ({PART_ROWS} rows) against "
+              f"phase 18's build {build_peak18 / 2**30:.2f} GiB ({n} rows)")
+        cagra_phase(f"cagra_ace_{PART_ROWS // 1000}k_itopk64",
+                    lambda qq: cagra.search(ace, qq, K, cg_sp[64]), gt=gt_part)
         del ace
-        # 26. iterative build on the first SUB rows (3 rounds of self-search)
-        xs = x[:SUB]
+        # 26. iterative build on the first ITER_ROWS rows (3 rounds of self-search)
+        xs = x[:ITER_ROWS]
         gt_sub = brute_force.search(brute_force.build(xs, metric=ds.metric), q, K)[1].cpu().numpy()
         t0 = time.time()
         itx = cagra.build_iterative(xs, graph_degree=32, intermediate_graph_degree=64, n_rounds=3)
         torch.cuda.synchronize()
-        print(f"# cagra build_iterative {SUB} rows 64 -> 32, 3 rounds: {time.time() - t0:.1f} s")
-        cagra_phase(f"cagra_iterative_{SUB // 1000}k_itopk128",
+        print(f"# cagra build_iterative {ITER_ROWS} rows 64 -> 32, 3 rounds: "
+              f"{time.time() - t0:.1f} s")
+        cagra_phase(f"cagra_iterative_{ITER_ROWS // 1000}k_itopk128",
                     lambda qq: cagra.search(itx, qq, K, cg_sp[128]), gt=gt_sub)
-        check(cg_res[f"cagra_iterative_{SUB // 1000}k_itopk128"]["recall"] >= 0.50,
+        check(cg_res[f"cagra_iterative_{ITER_ROWS // 1000}k_itopk128"]["recall"] >= 0.50,
               "iterative CAGRA below recall 0.50")
         pkx = cagra.pack(itx)
         pkx_cpu = cagra.PackedIndex(
@@ -1135,7 +1689,8 @@ def main() -> int:
               "mg load balancer recall more than 0.005 from a direct search's")
         del mgr, dd, di, rd, ri
         phase_peak("mg ivf_flat replicated")
-        # 34. mg sharded CAGRA (the reference's default algo), 64 -> 32 per shard
+        # 34. mg sharded CAGRA (the reference's default algo) of the first PART_ROWS rows,
+        # 64 -> 32 per shard
         shard_secs, cagra_build = [], cagra.build
 
         def timed_build(*a, **kw):
@@ -1148,13 +1703,14 @@ def main() -> int:
 
         cagra.build = timed_build
         try:
-            mgc = built("mg cagra 4 x 250k 64 -> 32", lambda: mg.build(
-                x, "cagra", "sharded", devices=devs, intermediate_graph_degree=64,
+            mgc = built(f"mg cagra 4 x {PART_ROWS // 4000}k 64 -> 32", lambda: mg.build(
+                x[:PART_ROWS], "cagra", "sharded", devices=devs, intermediate_graph_degree=64,
                 graph_degree=32, metric=ds.metric, seed=0))
         finally:
             cagra.build = cagra_build
         print("# mg cagra build seconds per shard: " + ", ".join(f"{s:.1f}" for s in shard_secs))
-        cagra_phase("mg_cagra_sharded_itopk64", lambda qq: mg.search(mgc, qq, K, params=cg_sp[64]))
+        cagra_phase("mg_cagra_sharded_itopk64",
+                    lambda qq: mg.search(mgc, qq, K, params=cg_sp[64]), gt=gt_part)
         check(cg_res["mg_cagra_sharded_itopk64"]["recall"] >= 0.80,
               "mg sharded CAGRA below recall 0.80")
         del mgc
@@ -1343,6 +1899,14 @@ def main() -> int:
                   f"equal phase 2's but at ties")
         phase_peak("dynamic batching")
         print(f"# phases 30-39: {time.time() - t30:.1f} s")
+        # 40-48: the long tail; no kernel of the path runs in this process (phase 48's
+        # fused search runs in a subprocess, outside these counters)
+        before = {**bf_topk.LAUNCHES, **ivf_scan.LAUNCHES}
+        t40 = time.time()
+        long_tail(dev, smi, ds, x, q, gti, d2, i2, results["bf_fused_exact_f32"]["qps"])
+        check({**bf_topk.LAUNCHES, **ivf_scan.LAUNCHES} == before,
+              "phases 40-48 launched a kernel in this process")
+        print(f"# phases 40-48: {time.time() - t40:.1f} s")
     torch.cuda.synchronize()
     peak = max(*peaks, torch.cuda.max_memory_allocated(dev))
     print(f"# peak device memory: {peak / 2**30:.2f} GiB")

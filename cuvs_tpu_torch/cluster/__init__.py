@@ -1,1 +1,2 @@
-"""Clustering: Lloyd k-means with k-means++ seeding, and the balanced k-means IVF trainer."""
+"""Clustering: Lloyd k-means with k-means++ seeding, the balanced k-means IVF trainer, and
+single-linkage and spectral clustering."""

@@ -1,1 +1,5 @@
-"""Core containers: packed bitsets."""
+"""Core containers: packed bitsets and the execution-policy handle."""
+
+from cuvs_tpu_torch.core.resources import Resources
+
+__all__ = ["Resources"]

@@ -1,1 +1,2 @@
-"""Distances: every pairwise metric (expanded, unexpanded, Haversine, bitwise Hamming) and the fused L2 argmin."""
+"""Distances: every pairwise metric (expanded, unexpanded, Haversine, bitwise Hamming), the
+fused L2 argmin, and the Gram / kernel-density kernels."""

@@ -15,8 +15,9 @@ import numpy as np
 import torch
 
 from cuvs_tpu_torch.distance.pairwise import normalize_metric
-from cuvs_tpu_torch.neighbors import (brute_force, cagra, ivf_common, ivf_flat, ivf_pq, ivf_rabitq,
-                                      ivf_sq, scann, vamana)
+from cuvs_tpu_torch.neighbors import (ball_cover, brute_force, cagra, ivf_common, ivf_flat, ivf_pq,
+                                      ivf_rabitq, ivf_sq, scann, vamana)
+from cuvs_tpu_torch.preprocessing import pca
 from cuvs_tpu_torch.utils.device import resolve_device
 
 
@@ -190,6 +191,25 @@ def scann_index_from_numpy(centers, labels, soar_labels, codes, pq_codebooks, re
                        codes_soar=_tensor(codes_soar, device, torch.uint8),
                        bf16_dataset=_tensor(bf16_dataset, device, torch.bfloat16),
                        params=params)
+
+
+def ball_cover_index_from_numpy(centers, center_norms, sorted_data, sorted_norms, offsets, sizes,
+                                ids, labels, q_scale, metric, window, n_rows, radii, device=None,
+                                adaptive_centers: bool = False) -> ball_cover.Index:
+    """The port's ball-cover index over a reference index's arrays: its inner
+    IVF-Flat index's (as ``ivf_flat_index_from_numpy`` takes them) and the
+    cells' ``radii``."""
+    inner = ivf_flat_index_from_numpy(centers, center_norms, sorted_data, sorted_norms, offsets,
+                                      sizes, ids, labels, q_scale, metric, window, n_rows,
+                                      device=device, adaptive_centers=adaptive_centers)
+    return ball_cover.Index(inner=inner, radii=_tensor(radii, device, torch.float32))
+
+
+def pca_from_numpy(mean, components, explained_variance, device=None) -> pca.PCA:
+    """The port's PCA over a reference fit's arrays."""
+    return pca.PCA(mean=_tensor(mean, device, torch.float32),
+                   components=_tensor(components, device, torch.float32),
+                   explained_variance=_tensor(explained_variance, device, torch.float32))
 
 
 def mg_index_from_numpy(shards, row_offsets, algo: str, mode: str, n_rows: int, devices=None):

@@ -1,1 +1,2 @@
-"""Standalone quantizers: scalar, binary, product and VQ + PQ."""
+"""Preprocessing: the standalone quantizers (scalar, binary, product, VQ + PQ), PCA and the
+spectral embedding."""

@@ -23,7 +23,9 @@ def topk(values: torch.Tensor, k: int, select_min: bool,
     ignored (the selection is exact)."""
     kk = min(k, values.shape[-1])
     v, i = torch.sort(values, dim=-1, descending=not select_min, stable=True)
-    return v[..., :kk], i[..., :kk]
+    # copies, not views: a view would keep the whole sorted block alive for as
+    # long as the caller keeps the k best
+    return v[..., :kk].contiguous(), i[..., :kk].contiguous()
 
 
 def _pad_to(x: torch.Tensor, size: int, fill) -> torch.Tensor:

@@ -7,13 +7,17 @@ import torch
 
 from cuvs_tpu_torch import interop
 from cuvs_tpu_torch import mg
-from cuvs_tpu_torch.cluster import kmeans, kmeans_balanced
+from cuvs_tpu_torch.cluster import agglomerative, kmeans, kmeans_balanced
+from cuvs_tpu_torch.cluster import spectral as spectral_cluster
 from cuvs_tpu_torch.core import bitpack, bitset
-from cuvs_tpu_torch.distance import pairwise
-from cuvs_tpu_torch.neighbors import (all_neighbors, brute_force, cagra, filters, graph_core,
+from cuvs_tpu_torch.distance import kernels, pairwise
+from cuvs_tpu_torch.neighbors import (all_neighbors, ball_cover, brute_force, cagra,
+                                      cross_component, epsilon_neighborhood, filters, graph_core,
                                       ivf_flat, ivf_pq, ivf_rabitq, ivf_sq, knn_graph, nn_descent,
-                                      offload, refine, scann, tiered_index, vamana)
-from cuvs_tpu_torch.preprocessing import quantize
+                                      offload, refine, scann, sparse_brute_force, tiered_index,
+                                      vamana)
+from cuvs_tpu_torch.preprocessing import pca, quantize, spectral
+from cuvs_tpu_torch.stats import silhouette_score, trustworthiness_score
 from cuvs_tpu_torch.selection import select_k
 from cuvs_tpu_torch.utils import device as dev_mod
 
@@ -28,6 +32,13 @@ _WORDS = np.random.default_rng(1).integers(0, 1 << 32, (256, 2), dtype=np.uint32
 def _like(x, a):
     """``a`` as the same kind of data as ``x``: a CPU tensor or a numpy array."""
     return torch.from_numpy(a) if isinstance(x, torch.Tensor) else a
+
+
+def _csr(x):
+    """The rows of x as CSR arrays (every entry stored), x's kind of data."""
+    n, d = x.shape
+    return (_like(x, np.arange(0, n * d + 1, d)), _like(x, np.tile(np.arange(d), n)),
+            x.reshape(-1))
 
 
 # entry point -> (call with the dataset and a device, the tensor its result lives in)
@@ -93,6 +104,27 @@ _ENTRIES = {
         tiered_index.build(brute_force, x, min_ann_rows=10**6, device=device), x[:4], 2)[0],
     "offload.build_host_refined": lambda x, device: offload.build_host_refined(
         x, "brute_force", device=device).device_index.dataset,
+    "ball_cover.build": lambda x, device: ball_cover.build(x, n_landmarks=4,
+                                                           device=device).radii,
+    "epsilon_neighborhood.eps_neighbors": lambda x, device: epsilon_neighborhood.eps_neighbors(
+        x, x[:4], 4.0, device=device)[0],
+    "sparse_brute_force.build": lambda x, device: sparse_brute_force.build(
+        *_csr(x), 16, device=device).norms,
+    "sparse_brute_force.search": lambda x, device: sparse_brute_force.search(
+        sparse_brute_force.build(*_csr(x), 16, device=device), *_csr(_X[:4]), 2)[1],
+    "pca.fit": lambda x, device: pca.fit(x, 4, device=device).components,
+    "spectral.spectral_embedding": lambda x, device: spectral.spectral_embedding(
+        x, 2, n_neighbors=5, device=device),
+    "spectral.spectral_embedding (LOBPCG)": lambda x, device: spectral.spectral_embedding(
+        x, 2, n_neighbors=5, dense_threshold=100, device=device),
+    "cluster.spectral.fit_predict": lambda x, device: spectral_cluster.fit_predict(
+        x, 2, n_neighbors=5, device=device)[0],
+    "stats.silhouette_score": lambda x, device: silhouette_score(
+        x, np.arange(256) % 3, device=device),
+    "stats.trustworthiness_score": lambda x, device: trustworthiness_score(
+        x, _X[:, :2], 3, device=device),
+    "kernels.gram_matrix": lambda x, device: kernels.gram_matrix(x, x[:4], device=device),
+    "kernels.kde": lambda x, device: kernels.kde(x, x[:16], device=device),
 }
 
 
@@ -146,6 +178,34 @@ def test_interop_defaults_to_the_card(no_cuda):
     assert idx.dataset.device.type == "cpu" and idx.graph.device.type == "cpu"
     with pytest.raises(RuntimeError, match="CUDA"):
         interop.cagra_index_from_numpy(_X, norms, _G, "sqeuclidean")
+
+
+def test_interop_long_tail_defaults_to_the_card(no_cuda):
+    p = interop.pca_from_numpy(_X.mean(0), _X[:4], np.ones(4, np.float32), device="cpu")
+    assert p.components.device.type == "cpu"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        interop.pca_from_numpy(_X.mean(0), _X[:4], np.ones(4, np.float32))
+    j = ivf_flat.build(_X, n_lists=4, seed=0, device="cpu")
+    args = [a.numpy() for a in (j.centers, j.center_norms, j.sorted_data, j.sorted_norms,
+                                j.lists.offsets, j.lists.sizes, j.lists.ids, j.lists.labels)]
+    idx = interop.ball_cover_index_from_numpy(*args, None, "sqeuclidean", j.window, j.n_rows,
+                                              np.ones(4, np.float32), device="cpu")
+    assert idx.radii.device.type == "cpu" and idx.inner.sorted_data.device.type == "cpu"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        interop.ball_cover_index_from_numpy(*args, None, "sqeuclidean", j.window, j.n_rows,
+                                            np.ones(4, np.float32))
+
+
+@pytest.mark.parametrize("call", ["single_linkage", "cross_component_nn"])
+def test_host_results_compute_on_the_card_by_default(no_cuda, call):
+    """single_linkage and cross_component_nn return host arrays, as the
+    reference does; their work runs on the card unless asked otherwise."""
+    fn = {"single_linkage": lambda **kw: agglomerative.single_linkage(_X, 3, **kw).labels,
+          "cross_component_nn": lambda **kw: cross_component.cross_component_nn(
+              _X, np.arange(256) % 2, **kw)}[call]
+    assert isinstance(fn(device="cpu"), np.ndarray)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fn()
 
 
 def test_mg_entry_points_go_to_the_devices_named(no_cuda):

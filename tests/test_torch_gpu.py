@@ -855,3 +855,74 @@ def test_host_library_builds_here(tmp_path):
     x = _blobs(48, 1000, 17)
     cio.write_bin(str(tmp_path / "x.fbin"), x)
     np.testing.assert_array_equal(cio.load_bin(str(tmp_path / "x.fbin")), x)
+
+
+def test_ball_cover_on_the_card_matches_the_cpu(cuda):
+    from cuvs_tpu_torch.neighbors import ball_cover
+    from cuvs_tpu_torch.utils.device import index_to
+
+    x, q = _blobs(50, 6000, 16), _blobs(51, 64, 16)
+    idx = ball_cover.build(x, seed=0)
+    assert idx.radii.is_cuda and idx.inner.sorted_data.is_cuda
+    host = ball_cover.Index(inner=index_to(idx.inner, "cpu"), radii=idx.radii.cpu())
+    for two_pass in (True, False):
+        d, i = ball_cover.knn_query(idx, q, 10, two_pass=two_pass)
+        hd, hi = ball_cover.knn_query(host, torch.from_numpy(q), 10, two_pass=two_pass)
+        np.testing.assert_allclose(d.cpu().numpy(), hd.numpy(), rtol=RTOL, atol=ATOL)
+        ids_match_modulo_ties(i.cpu().numpy(), hi.numpy(), hd.numpy())
+    adj, deg = ball_cover.eps_nn(idx, x[:32], 3.0)
+    hadj, hdeg = ball_cover.eps_nn(host, torch.from_numpy(x[:32]), 3.0)
+    dist = np.sqrt(((x[:32, None].astype(np.float64) - x[None]) ** 2).sum(-1))
+    assert bool(((adj.cpu() == hadj).numpy() | (np.abs(dist - 3.0) <= 1e-5 * 3.0)).all())
+
+
+@pytest.mark.parametrize("metric", ["sqeuclidean", "inner_product", "cosine", "hellinger",
+                                    "l1", "linf", "braycurtis", "jensenshannon"])
+def test_sparse_brute_force_on_the_card_matches_the_cpu(cuda, metric):
+    import scipy.sparse as sp
+
+    from cuvs_tpu_torch.neighbors import sparse_brute_force as sbf
+
+    rs = np.random.RandomState(52)
+    x = sp.random(900, 400, density=0.05, random_state=rs, format="csr", dtype=np.float32)
+    q = sp.random(40, 400, density=0.05, random_state=rs, format="csr", dtype=np.float32)
+    blocks = dict(query_block=16, index_block=256, feature_tile=128)
+    d, i = sbf.search(sbf.from_scipy(x, metric=metric), q.indptr, q.indices, q.data, 7, **blocks)
+    assert d.is_cuda and i.dtype == torch.int64
+    hd, hi = sbf.search(sbf.from_scipy(x, metric=metric, device="cpu"), q.indptr, q.indices,
+                        q.data, 7, **blocks)
+    np.testing.assert_allclose(d.cpu().numpy(), hd.numpy(), rtol=RTOL, atol=ATOL)
+    order = -hd.numpy() if metric == "inner_product" else hd.numpy()
+    ids_match_modulo_ties(i.cpu().numpy(), hi.numpy(), order)
+
+
+def test_boruvka_mask_on_the_card_equals_the_cpu(cuda):
+    from cuvs_tpu_torch.cluster import agglomerative
+
+    rng = np.random.default_rng(53)
+    n, m = 5000, 40000
+    u = torch.from_numpy(rng.integers(0, n, m).astype(np.int32))
+    v = torch.from_numpy(((u.numpy() + rng.integers(1, n, m)) % n).astype(np.int32))
+    w = torch.from_numpy(rng.integers(1, 20, m).astype(np.float32))  # repeated weights
+    host = agglomerative._boruvka_forest(u, v, w, n)
+    card = agglomerative._boruvka_forest(u.to(cuda), v.to(cuda), w.to(cuda), n)
+    assert card.is_cuda and torch.equal(card.cpu(), host)
+
+
+def test_capi_bridge_on_the_card_equals_a_direct_call(cuda, monkeypatch):
+    from cuvs_tpu_torch import capi_bridge
+    from cuvs_tpu_torch.neighbors import brute_force
+
+    monkeypatch.setattr(capi_bridge, "_DEVICE", None)
+    capi_bridge.init("gpu")
+    x, q = _blobs(54, 5000, 32), _blobs(55, 64, 32)
+    handle = capi_bridge.build("brute_force", "sqeuclidean", "{}", x.ctypes.data, 5000, 32)
+    assert handle[1].dataset.is_cuda
+    out_d = np.zeros((64, 10), np.float32)
+    out_i = np.zeros((64, 10), np.int32)
+    capi_bridge.search(handle, '{"fused": true}', q.ctypes.data, 64, 32, 10, out_d.ctypes.data,
+                       out_i.ctypes.data)
+    assert capi_bridge.sync()
+    d, i = brute_force.search(brute_force.build(x), q, 10, fused=True)
+    np.testing.assert_array_equal(out_i, i.cpu().numpy())
+    np.testing.assert_array_equal(out_d, d.cpu().numpy())
