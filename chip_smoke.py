@@ -185,6 +185,25 @@ same shape): 1,000,000 x 128 f32, 4096 queries, k = 10.
      started on the host before phase 41 (two threads), walks the whole ABI
      and prints "C API smoke test PASSED". The kernels and the C library
      build in threads while the data is made.
+ 49. the bench CLI (``python -m cuvs_tpu_torch.bench``, ``__main__.main``
+     in-process) on sift-128-euclidean at 1M rows, its 10,000 queries, k = 10:
+     (a) ``--config ivf_rabitq --group base`` (1024 lists, 1/3/5/8 bits x
+     probes 10/50/100: 12 rows), (b) ``--algo ivf_flat --algo ivf_pq`` at 1024
+     lists with the default grids (4 + 6 rows), (c) brute force ``fused``,
+     exact and f32 approximate (``recall_target`` 0.97: the f32 variant of
+     the approximate kernel): the row counts the hooks leave, each CSV read
+     back with the reference's seven columns, recall not falling (slack
+     0.005) as n_probes grows within a build, the exact row at least 0.999,
+     the 3-bit 50-probe RaBitQ row within 0.02 of phase 7's, and all four
+     kernels launched by the CLI. The CLI's calls are recorded as variants
+     of their own (``-cli``: the f32 IVF-Flat scan, RaBitQ at 1, 3, 5 and 8
+     bits, ...), so each is held against its plain version with the others.
+     Then one f32 approximate search of the 4096 queries (the kernels line's
+     ``float32`` variant of ``bf_topk_approx``) and five IVF-PQ searches of
+     the 10,000 queries, each under ``tracing.start_profiler_trace``: every
+     trace names ``pq_scan_kernel``; the card's busy share of the traced and
+     of the untraced wall time (medians of the five) is printed, with the
+     median search's device time per kernel name.
 
 Each of phases 40-48 prints its seconds and its device-memory peak above what
 is held, beside the card's name and power limit; they launch none of the four
@@ -200,7 +219,7 @@ Launch counters are zeroed just before that run and read just after; every
 kernel of the path must have launched. Each variant's line carries its own
 count of wrapper calls in that run (each one launch on the card). Then each kernel is held against its
 plain PyTorch version on the inputs the path gave it, once per variant
-(row dtype, or mode and table type): float pools to rtol 1e-4 / atol 1e-3
+(row dtype, or mode and table type, RaBitQ's bits): float pools to rtol 1e-4 / atol 1e-3
 (the same exact products summed in another order; ids may differ only at
 near-ties, <= 0.1% of entries), int8 pools bit-identical, pools of the int8
 lookup table within that tolerance except where an entry's lut/scale sits on
@@ -250,6 +269,7 @@ L1_ROWS = 20_000  # the rows of phase 47's pointwise-tail (L1) sparse search
 VAMANA_ROWS = 100_000
 FLOAT_RTOL, FLOAT_ATOL, ID_MISMATCH = 1e-4, 1e-3, 1e-3
 RECALL_SLACK = 0.005
+TRACED_SEARCHES = 5  # phase 49's IVF-PQ searches under the profiler (the median is read)
 
 
 class SmokeFailure(RuntimeError):
@@ -291,11 +311,13 @@ def kernels():
 
 
 def variant(name, args, kw):
-    """The variant of a kernel call: the quantized scan's mode and table type,
-    else the dtype of the first argument (queries or rows)."""
+    """The variant of a kernel call: the quantized scan's mode and table type
+    (RaBitQ: its bits per code), else the dtype of the first argument
+    (queries or rows)."""
     if name == "pq_scan":
-        mode = kw.get("mode", "pq")
-        return mode if mode == "rabitq" else f"pq-{'int8lut' if kw.get('int8_mode') else 'bf16'}"
+        if kw.get("mode", "pq") == "rabitq":
+            return f"rabitq-{kw['bits']}bit"
+        return f"pq-{'int8lut' if kw.get('int8_mode') else 'bf16'}"
     return str(args[0].dtype).replace("torch.", "")
 
 
@@ -896,6 +918,164 @@ def long_tail(dev, smi, ds, x, q, gti, d2, i2, exact_qps):
             walk.kill()
             walk.wait()
         capi_tmp.cleanup()
+
+
+def device_busy(trace_path):
+    """(µs of the trace during which the card ran a kernel, a copy or a set:
+    the union of those events' intervals; µs of device time per event name)."""
+    with open(trace_path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in e]
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted((e["ts"], e["ts"] + e["dur"]) for e in events):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    by_name = {}
+    for e in events:
+        by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"]
+    return busy, by_name
+
+
+def bench_cli_phase(dev, smi, ds, bf, pq, pq_sp, q, gti, results, tagged):
+    """Phase 49: ``python -m cuvs_tpu_torch.bench`` in-process on the stand-in
+    (1M x 128, its 10,000 queries, k = 10, ground truth of the first 1024),
+    as a user runs it: (a) ``--config ivf_rabitq --group base`` (4 builds x 3
+    probes), (b) ``--algo ivf_flat --algo ivf_pq`` at 1024 lists with the
+    default grids (4 + 6 rows), (c) brute force fused, exact and f32
+    approximate (2 rows). The CLI's loads of sift-128-euclidean return the
+    script's own ``ds`` (the same seeded arrays; a load takes 4-5 s on the
+    host). Its kernel calls are recorded under ``-cli`` variants. Then one f32
+    approximate search of the 4096 queries (the kernels line's float32
+    variant of ``bf_topk_approx``) and five IVF-PQ searches of the 10,000
+    queries, each under the profiler (recorded under ``-trace``)."""
+    import csv
+    import io
+
+    import torch
+
+    from cuvs_tpu_torch.bench import __main__ as cli
+    from cuvs_tpu_torch.bench import datasets
+    from cuvs_tpu_torch.bench.gt import id_recall
+    from cuvs_tpu_torch.neighbors import brute_force, ivf_pq
+    from cuvs_tpu_torch.ops import bf_topk, ivf_scan
+    from cuvs_tpu_torch.utils import tracing
+
+    real_load = datasets.load
+
+    def load(name, max_rows=None, seed=0):
+        if name == "sift-128-euclidean" and (max_rows or N) >= N and seed == 0:
+            return ds
+        return real_load(name, max_rows=max_rows, seed=seed)
+
+    columns = ["algo", "dataset", "build_s", "params", "recall", "qps", "latency_ms"]
+    tmp = tempfile.TemporaryDirectory()
+    before = {**bf_topk.LAUNCHES, **ivf_scan.LAUNCHES}
+    runs = {"a": ["--config", "ivf_rabitq", "--group", "base"],
+            "b": ["--algo", "ivf_flat", "--algo", "ivf_pq", "--build-params", '{"n_lists": 1024}'],
+            "c": ["--algo", "brute_force", "--search-grid",
+                  '{"fused": [true], "recall_target": [null, 0.97]}']}
+    rows = {}
+    datasets.load = load
+    try:
+        for key, argv in runs.items():
+            out_csv = os.path.join(tmp.name, f"{key}.csv")
+            printed = io.StringIO()
+            t0 = time.time()
+            with tagged("-cli"), contextlib.redirect_stdout(printed):
+                rows[key] = cli.main(["--dataset", "sift-128-euclidean", "--cache-dir", tmp.name,
+                                      "--csv", out_csv, *argv])
+            check(printed.getvalue().splitlines() == [json.dumps(r.as_dict()) for r in rows[key]],
+                  f"CLI ({key}): printed rows differ from the returned rows")
+            with open(out_csv) as f:
+                back = list(csv.DictReader(f))
+            check(len(back) == len(rows[key]) and (not back or list(back[0]) == columns),
+                  f"CLI ({key}): the CSV does not read back with the reference's columns")
+            for r in rows[key]:
+                print(f"# cli ({key}) {r.algo} {json.dumps(r.params)}: recall@10={r.recall:.4f} "
+                      f"qps={r.qps:.0f} latency {r.latency_ms:.2f} ms, build {r.build_s:.2f} s")
+            print(f"# cli ({key}): {len(rows[key])} rows in {time.time() - t0:.1f} s")
+    finally:
+        datasets.load = real_load
+        tmp.cleanup()
+    torch.cuda.synchronize()
+    launched = {name: n - before[name] for name, n in {**bf_topk.LAUNCHES,
+                                                      **ivf_scan.LAUNCHES}.items()}
+    print(f"# cli launches: {json.dumps(launched)}")
+    check(all(n > 0 for n in launched.values()), f"the CLI left a kernel unlaunched: {launched}")
+    check([len(rows[key]) for key in "abc"] == [12, 4 + 6, 2],
+          f"CLI row counts {[len(rows[key]) for key in 'abc']}, expected [12, 10, 2]")
+
+    # recall does not fall as n_probes grows, per build (and per refine ratio)
+    groups = {}
+    for r in rows["a"] + rows["b"]:
+        build, search = (r.params["build"], r.params["search"]) if "build" in r.params else (
+            None, r.params)
+        key = (r.algo, json.dumps(build, sort_keys=True), search.get("refine_ratio"))
+        groups.setdefault(key, []).append((search["n_probes"], r.recall))
+    for key, pts in groups.items():
+        pts.sort()
+        check(all(b[1] >= a[1] - RECALL_SLACK for a, b in zip(pts, pts[1:])),
+              f"CLI {key}: recall falls as n_probes grows: {pts}")
+    exact, approx = rows["c"]
+    check(exact.params == {"fused": True, "recall_target": None} and exact.recall >= 0.999,
+          f"CLI brute force exact row: {exact.params} recall {exact.recall}")
+    b3 = [r for r in rows["a"] if r.params == {"build": {"bits_per_dim": 3, "n_lists": 1024},
+                                               "search": {"n_probes": 50}}]
+    ref7 = results[f"ivf_rabitq_b3_p{Q_PROBES}"]["recall"]
+    check(len(b3) == 1 and abs(b3[0].recall - ref7) <= 0.02,
+          f"CLI RaBitQ 3 bits p50 recall {[r.recall for r in b3]} vs phase 7's {ref7:.4f}")
+    print(f"# cli: RaBitQ 3 bits p50 recall {b3[0].recall:.4f} (1024 queries) against phase 7's "
+          f"{ref7:.4f} (4096); brute force exact {exact.recall:.4f}, f32 approximate "
+          f"{approx.recall:.4f}")
+
+    # the f32 approximate kernel at the path's shape: recorded for the kernels line
+    d, i = brute_force.search(bf, q, K, fused=True, recall_target=0.97)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(d).all()), "f32 approximate search: non-finite distances")
+    rec = id_recall(i.cpu(), gti)
+    check(rec >= 0.9, f"f32 approximate search recall {rec:.4f}")
+    print(f"# bf_fused_f32_approx ({q.shape[0]} queries): recall@10={rec:.4f}")
+
+    # IVF-PQ searches of the 10,000 queries: five untraced, then five each under the profiler
+    q10 = torch.from_numpy(ds.queries.astype("float32")).to(dev)
+    search = lambda: ivf_pq.search(pq, q10, K, pq_sp)  # noqa: E731
+    untraced, traced = [], []
+    trace_dir = tempfile.TemporaryDirectory()
+    try:
+        with tagged("-trace"):
+            search()
+            torch.cuda.synchronize()
+            for _ in range(TRACED_SEARCHES):
+                t0 = time.time()
+                search()
+                torch.cuda.synchronize()
+                untraced.append(time.time() - t0)
+            for _ in range(TRACED_SEARCHES):
+                tracing.start_profiler_trace(trace_dir.name)
+                t0 = time.time()
+                search()
+                torch.cuda.synchronize()
+                wall = time.time() - t0
+                traced.append((wall, *device_busy(tracing.stop_profiler_trace())))
+    finally:
+        trace_dir.cleanup()
+    for _, _, by_name in traced:
+        check(any("pq_scan_kernel" in n for n in by_name),
+              f"a profiler trace names no pq_scan_kernel: {sorted(by_name)[:20]}")
+    mid = TRACED_SEARCHES // 2
+    wall, busy_us, by_name = sorted(traced, key=lambda t: t[1] / t[0])[mid]
+    plain_wall = sorted(untraced)[mid]
+    shares = ", ".join(f"{b / 1e3 / (w * 1e3):.3f}" for w, b, _ in traced)
+    print(f"# ivf_pq p{Q_PROBES} search of {q10.shape[0]} queries: untraced wall median "
+          f"{plain_wall * 1e3:.2f} ms of {TRACED_SEARCHES}; device busy / traced wall of "
+          f"{TRACED_SEARCHES} searches under torch.profiler: {shares}; the median one: busy "
+          f"{busy_us / 1e3:.2f} ms = {busy_us / 1e3 / (wall * 1e3):.3f} of its {wall * 1e3:.2f} "
+          f"ms traced, {busy_us / 1e3 / (plain_wall * 1e3):.3f} of the untraced median; "
+          f"{len(by_name)} device event names, pq_scan_kernel among them ({smi})")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    print("# that median traced search's device time by name: " + "; ".join(
+        f"{n[:60]} {us / 1e3:.2f} ms" for n, us in top))
 
 
 def build_capi_programs(tmp):
@@ -1907,6 +2087,16 @@ def main() -> int:
         check({**bf_topk.LAUNCHES, **ivf_scan.LAUNCHES} == before,
               "phases 40-48 launched a kernel in this process")
         print(f"# phases 40-48: {time.time() - t40:.1f} s")
+        # 49. the bench CLI, then the f32 approximate kernel and a traced IVF-PQ search
+        torch.cuda.synchronize()
+        held49 = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t49 = time.time()
+        bench_cli_phase(dev, smi, ds, bf, pq, pq_sp[torch.bfloat16], q, gti, results, tagged)
+        peaks.append(torch.cuda.max_memory_allocated(dev))
+        print(f"# phase 49 bench CLI: {time.time() - t49:.1f} s, peak "
+              f"{(peaks[-1] - held49) / 2**30:.2f} GiB above the {held49 / 2**30:.2f} GiB held "
+              f"({smi})")
     torch.cuda.synchronize()
     peak = max(*peaks, torch.cuda.max_memory_allocated(dev))
     print(f"# peak device memory: {peak / 2**30:.2f} GiB")

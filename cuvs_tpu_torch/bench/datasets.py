@@ -1,19 +1,27 @@
-"""Benchmark datasets: registry and loading — port of ``cuvs_tpu.bench.datasets``.
+"""Benchmark datasets: registry, loading, ground truth — port of ``cuvs_tpu.bench.datasets``.
 
 The registry entries, the big-ann ``.fbin/.u8bin/.i8bin`` reader and the
 seeded synthetic stand-in are the reference's, so both packages load
 byte-identical arrays (the reference's module cannot be imported without JAX).
 Real datasets load from ``$CUVS_TPU_DATASET_DIR/<base_file>``; when the files
 are absent, a seeded synthetic dataset of the standard shape stands in.
+``groundtruth`` caches in the reference's ``.npz`` file, so each package reads
+the other's cache.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
+import torch
+
+from cuvs_tpu_torch.utils.device import as_tensor
+
+# base files above this many bytes are read by the host library's threaded reader
+_NATIVE_READ_BYTES = 1 << 30
 
 
 @dataclasses.dataclass(frozen=True)
@@ -145,7 +153,13 @@ def load(name: str, max_rows: Optional[int] = None, seed: int = 0) -> Dataset:
         query_path = os.path.join(root, spec.query_file)
         gt_path = os.path.join(root, spec.gt_file)
         if os.path.exists(base_path):
-            base = _read_bin(base_path, spec.dtype, n)
+            if base_path.endswith(".fbin") and os.path.getsize(base_path) > _NATIVE_READ_BYTES:
+                from cuvs_tpu_torch import io as cio  # the host library's threaded reader
+
+                with cio.BinDataset(base_path) as d:
+                    base = d.read(0, min(n, d.n_rows))
+            else:
+                base = _read_bin(base_path, spec.dtype, n)
             queries = (
                 _read_bin(query_path, spec.dtype)
                 if os.path.exists(query_path)
@@ -176,3 +190,55 @@ def load(name: str, max_rows: Optional[int] = None, seed: int = 0) -> Dataset:
     queries = rng.standard_normal((nq, r), dtype=np.float32) @ proj
     queries += 0.05 * rng.standard_normal((nq, dim), dtype=np.float32)
     return Dataset(name, base, queries, spec.metric, synthetic=True)
+
+
+def download(name: str, dest: Optional[str] = None) -> str:
+    """Placeholder for cuvs_bench.get_dataset: there is no network egress, so
+    datasets must be staged into CUVS_TPU_DATASET_DIR out of band (the same
+    .fbin layout as the reference's download tooling)."""
+    raise RuntimeError(
+        f"no network egress: place {REGISTRY[name].base_file} under "
+        f"$CUVS_TPU_DATASET_DIR ({dest or dataset_dir() or 'unset'})"
+    )
+
+
+def on_device(a, device=None) -> torch.Tensor:
+    """Rows as a tensor on ``device`` (None: the CUDA card; a tensor keeps its
+    device unless ``device`` is given). float64 becomes float32, as the
+    reference's ``jnp.asarray`` makes it with x64 off; other dtypes are kept."""
+    if not isinstance(a, torch.Tensor):
+        a = np.asarray(a)
+        a = a.astype(np.float32) if a.dtype == np.float64 else a
+    t = as_tensor(a, device)
+    return t.float() if t.dtype == torch.float64 else t
+
+
+def groundtruth(ds: Dataset, k: int = 100, gt_queries: int = 1024,
+                cache_dir: Optional[str] = None, device=None) -> Tuple[np.ndarray, np.ndarray]:
+    """Exact k-NN ground truth (generate_groundtruth analog): (dists, ids) as
+    numpy [gt_queries, k] float32 / int32, from an unfused exact brute-force
+    search on ``device`` (None: the card, or the device of ``ds.base`` when it
+    is a tensor). Uses the dataset's provided .ibin ground truth when
+    available, with zeros for the distances, as the reference does."""
+    if ds.gt_ids is not None and ds.gt_ids.shape[0] >= gt_queries:
+        return np.zeros((gt_queries, min(k, ds.gt_ids.shape[1])), np.float32), (
+            ds.gt_ids[:gt_queries, :k]
+        )
+    cache = None
+    if cache_dir:
+        os.makedirs(cache_dir, exist_ok=True)
+        cache = os.path.join(
+            cache_dir, f"{ds.name}-n{ds.base.shape[0]}-q{gt_queries}-k{k}.npz"
+        )
+        if os.path.exists(cache):
+            z = np.load(cache)
+            return z["dists"], z["ids"]
+    from cuvs_tpu_torch.neighbors import brute_force
+
+    base = on_device(ds.base, device)
+    index = brute_force.build(base, metric=ds.metric)
+    d, i = brute_force.search(index, on_device(ds.queries[:gt_queries], base.device), k)
+    d, i = d.cpu().numpy(), i.cpu().numpy()
+    if cache:
+        np.savez(cache, dists=d, ids=i)
+    return d, i

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -151,3 +151,11 @@ def predict(x, centers, compute_dtype=torch.float32, device=None) -> torch.Tenso
     x = _on_device(x, device).float()
     return fused_l2_argmin(x, _on_device(centers, x.device).float(),
                            compute_dtype=compute_dtype)[0]
+
+
+def fit_predict(x, n_clusters: int, params: Optional[BalancedParams] = None, device=None,
+                **kw) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``fit`` then ``predict`` on the same rows: (labels [n] int32, centers)."""
+    x = _on_device(x, device)
+    centers = fit(x, n_clusters, params, **kw)
+    return predict(x, centers), centers

@@ -5,8 +5,10 @@ Formats (big-ann-benchmarks layout, as consumed by cuvs_bench, blob.hpp):
 (int8): [int32 n_rows][int32 dim][payload].
 
 The port's host library holds the memory-mapped reader and writer
-(``native/dataset_io.cpp``) and the batch queue of dynamic batching
-(``native/batch_queue.cpp``). It is built at its first use with the C++
+(``native/dataset_io.cpp``), the batch queue of dynamic batching
+(``native/batch_queue.cpp``) and the CPU HNSW competitor of the bench harness
+(``native/hnsw_baseline.cpp``): the three sources ``native/Makefile`` links
+into one library. It is built at its first use with the C++
 compiler (``c++``, the flags of ``native/Makefile``) into
 ``cuvs_tpu_torch/_build/``, named by a hash of the sources and flags, and
 renamed into place so concurrent builds never leave a partial file. Nothing
@@ -30,7 +32,7 @@ import numpy as np
 
 _PKG = Path(__file__).resolve().parent.parent
 NATIVE = _PKG.parent / "native"
-SOURCES = ("dataset_io.cpp", "batch_queue.cpp")
+SOURCES = ("dataset_io.cpp", "batch_queue.cpp", "hnsw_baseline.cpp")
 BUILD_DIR = _PKG / "_build"
 CXX_FLAGS = ["-O3", "-fPIC", "-std=c++17", "-pthread", "-shared"]
 
@@ -57,6 +59,9 @@ _SIGNATURES = {
     "cuvs_tpu_queue_push": (_I64, [_P, _P, _I64, _I64]),
     "cuvs_tpu_queue_pop_batch": (_I64, [_P, _P, _P, _I64, _I64]),
     "cuvs_tpu_queue_size": (_I64, [_P]),
+    "hnswb_build": (_P, [_P, _I64, _INT, _INT, _INT, _INT, ctypes.c_uint64]),
+    "hnswb_search": (None, [_P, _P, _I64, _INT, _INT, _P, _P]),
+    "hnswb_free": (None, [_P]),
 }
 
 

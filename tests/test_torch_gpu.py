@@ -926,3 +926,56 @@ def test_capi_bridge_on_the_card_equals_a_direct_call(cuda, monkeypatch):
     d, i = brute_force.search(brute_force.build(x), q, 10, fused=True)
     np.testing.assert_array_equal(out_i, i.cpu().numpy())
     np.testing.assert_array_equal(out_d, d.cpu().numpy())
+
+
+def test_bench_cli_on_the_card_searches_through_the_kernels(cuda, tmp_path, capsys):
+    import json
+
+    from cuvs_tpu_torch.bench import __main__ as cli
+
+    before = {**bf_topk.LAUNCHES, **ivf_scan.LAUNCHES}
+    common = ["--dataset", "synthetic-100k-96", "--max-rows", "20000", "--reps", "1",
+              "--cache-dir", str(tmp_path)]
+    rows = cli.main(common + ["--algo", "brute_force", "--search-grid",
+                              '{"fused": [true], "recall_target": [null, 0.97]}'])
+    rows += cli.main(common + ["--algo", "ivf_flat", "--build-params", '{"n_lists": 64}',
+                               "--search-grid", '{"n_probes": [8, 32]}'])
+    rows += cli.main(common + ["--config", "ivf_pq", "--group", "tiny"])
+    printed = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
+    assert printed == [r.as_dict() for r in rows]
+    assert len(rows) == 2 + 2 + 8
+    assert rows[0].recall >= 0.999 and rows[1].recall >= 0.9  # exact; f32 approx
+    assert rows[3].recall >= rows[2].recall - 0.005
+    after = {**bf_topk.LAUNCHES, **ivf_scan.LAUNCHES}
+    assert all(after[name] > before[name] for name in after), (before, after)
+
+
+def test_profiler_trace_names_a_port_kernel(cuda, tmp_path):
+    import json
+
+    from cuvs_tpu_torch.neighbors import brute_force
+    from cuvs_tpu_torch.utils import tracing
+
+    x, q = _blobs(60, 20000, 64), _blobs(61, 256, 64)
+    index = brute_force.build(torch.from_numpy(x).to(cuda))
+    brute_force.search(index, torch.from_numpy(q).to(cuda), 10, fused=True)  # warm-up
+    torch.cuda.synchronize()
+    tracing.start_profiler_trace(str(tmp_path))
+    brute_force.search(index, torch.from_numpy(q).to(cuda), 10, fused=True)
+    torch.cuda.synchronize()
+    path = tracing.stop_profiler_trace()
+    with open(path) as f:
+        kernels = {e["name"] for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel"}
+    assert any("bf_topk_exact" in name for name in kernels), sorted(kernels)
+
+
+def test_hnsw_cpu_builds_from_the_port_host_library():
+    from cuvs_tpu_torch.bench.competitors import HnswCpu
+    from cuvs_tpu_torch.io import native
+
+    x, q = _blobs(62, 4000, 32), _blobs(63, 50, 32)
+    d, i = HnswCpu(M=16, ef_construction=100).build(x).search(q, 10, ef=128)
+    assert native.library_path().exists()
+    exact = np.argsort(((q[:, None, :] - x[None]) ** 2).sum(-1), axis=1)[:, :10]
+    recall = np.mean([len(set(a) & set(b)) / 10 for a, b in zip(i.tolist(), exact.tolist())])
+    assert recall >= 0.9, recall
