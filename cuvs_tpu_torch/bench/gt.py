@@ -11,6 +11,8 @@ raises here: a wrong kernel must not be hidden behind a slower path.
 
 from __future__ import annotations
 
+import sys
+
 import numpy as np
 import torch
 
@@ -28,11 +30,13 @@ def id_recall(found, gt) -> float:
                           for a, b in zip(found, gt)]))
 
 
-def exact_ground_truth(bf_index: brute_force.Index, queries, k: int, ncheck: int = 256):
+def exact_ground_truth(bf_index: brute_force.Index, queries, k: int, ncheck: int = 256,
+                       verbose: bool = True):
     """Exact top-k ids [nq, k] (numpy) for ``queries`` against ``bf_index``.
 
     Raises GroundTruthMismatch when the fused kernel and the unfused path
-    disagree on the first ``ncheck`` queries."""
+    disagree on the first ``ncheck`` queries; with ``verbose`` the
+    disagreement is printed to stderr first, as the reference prints it."""
     gtd, gti = brute_force.search(bf_index, queries, k, fused=True, compute_dtype=torch.float32)
     nc = min(ncheck, queries.shape[0])
     refd, refi = brute_force.search(bf_index, queries[:nc], k)
@@ -40,6 +44,9 @@ def exact_ground_truth(bf_index: brute_force.Index, queries, k: int, ncheck: int
     dist_ok = torch.allclose(torch.sort(gtd[:nc], 1).values, torch.sort(refd, 1).values,
                              rtol=1e-3, atol=1e-4)
     if agree < 0.995 or not dist_ok:
+        if verbose:
+            print(f"# fused GT disagrees with unfused (ids {agree:.4f}, dist_ok={dist_ok})",
+                  file=sys.stderr)
         raise GroundTruthMismatch(f"fused ground truth disagrees with the unfused path "
                                   f"(ids {agree:.4f}, distances close: {dist_ok})")
     return gti.cpu().numpy()

@@ -51,7 +51,10 @@ def kernel_bound(name: str, args, kw, out) -> dict:
     if name == "ivf_scan":
         rows, queries, qidx, _, lo, sizes = args[0], args[2], args[3], args[4], args[5], args[6]
         ops = 2.0 * _scan_pairs(qidx, lo, sizes, kw["W"]) * rows.shape[1]
-        return bound(ops, _PEAK_OF[rows.dtype], n_bytes)
+        # a float32 operand (f32 rows, or f32 queries of bf16 rows) puts the
+        # products on the fp32 tile
+        fp32 = torch.float32 in (rows.dtype, queries.dtype)
+        return bound(ops, "fp32" if fp32 else _PEAK_OF[rows.dtype], n_bytes)
     if name == "pq_scan":
         queries, cb_t, qidx, lo, sizes = args[2], args[3], args[5], args[7], args[8]
         book = kw.get("book", 256)

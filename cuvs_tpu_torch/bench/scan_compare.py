@@ -5,13 +5,15 @@
 At chip_smoke.py's shapes (sift-128-euclidean, 1,000,000 x 128, 4096
 queries, k = 10; IVF-Flat with 1984 lists in bf16 and 64 probes; IVF-PQ with
 1024 lists, pq_dim 64, 8 bits and 50 probes; IVF-RaBitQ with 1024 lists,
-3 bits and 50 probes) it builds the three indexes, records the scan
-wrappers' calls of one search each, and times per variant (ivf_scan bf16;
-pq_scan pq-bf16, pq-int8lut, rabitq) this tree's kernel, the kernel built
-from the sources in DIR (an earlier ``cuvs_tpu_torch/csrc``, same C
-interface) and the plain PyTorch version, in turns: plain, new, earlier,
-earlier, new, plain. Each time is the CUDA-event mean of ``reps`` calls after
-a warm-up. Beside them: the bound (``roofline.py``), the kernel's share of
+3 bits and 50 probes), plus IVF-Flat as the bench CLI builds it (1024 lists,
+default storage: f32 rows) searched at 10 and 100 probes, and the bf16 index
+searched with f32 queries, it builds the indexes, records the scan wrappers'
+calls of one search each, and times per variant (ivf_scan bfloat16,
+bf16rows-f32q, f32-p10, f32-p100; pq_scan pq-bf16, pq-int8lut, rabitq) this
+tree's kernel, the kernel built from the sources in DIR (an earlier
+``cuvs_tpu_torch/csrc``, same C interface) and the plain PyTorch version, in
+turns: plain, new, earlier, earlier, new, plain. Each time is the CUDA-event
+mean of ``reps`` calls after a warm-up. Beside them: the bound (``roofline.py``), the kernel's share of
 it, how far its pool is from the plain version's, and for the quantized scan
 the shared-memory ceiling of its table lookups (``smem_ms``: every lookup's
 table bytes, S per valid (slot, row) pair, read once at 128 bytes per clock
@@ -46,6 +48,7 @@ from cuvs_tpu_torch.ops import ivf_scan as ops_scan
 
 N, NQ, K = 1_000_000, 4096, 10
 N_LISTS, N_PROBES = 1984, 64  # chip_smoke.py's IVF-Flat
+CLI_LISTS, CLI_PROBES = 1024, (10, 100)  # the bench CLI's f32 IVF-Flat (configs/ivf_flat.yaml)
 Q_LISTS, Q_PROBES = 1024, 50  # chip_smoke.py's IVF-PQ and IVF-RaBitQ
 SMEM_BYTES_PER_CLOCK = 128  # per SM: 32 banks of 4 bytes
 
@@ -66,13 +69,18 @@ def indexes(x: torch.Tensor, metric) -> dict:
                           storage_dtype=torch.bfloat16)
     flat_sp = ivf_flat.SearchParams(n_probes=N_PROBES, scan_algo="fused",
                                     compute_dtype=torch.bfloat16, recall_target=0.97)
+    flat_f32q = ivf_flat.SearchParams(n_probes=N_PROBES, scan_algo="fused")
+    cli = ivf_flat.build(x, n_lists=CLI_LISTS, metric=metric, seed=0)
     pq = ivf_pq.build(x, n_lists=Q_LISTS, pq_dim=64, pq_bits=8, metric=metric, seed=0)
     pq_sp = {lut: ivf_pq.SearchParams(n_probes=Q_PROBES, scan_algo="fused", lut_dtype=lut)
              for lut in (torch.bfloat16, torch.int8)}
     rq = ivf_rabitq.build(x, n_lists=Q_LISTS, bits_per_dim=3, metric=metric, seed=0)
     rq_sp = ivf_rabitq.SearchParams(n_probes=Q_PROBES, scan_algo="fused")
     return {
-        "ivf_flat": lambda q: ivf_flat.search(flat, q, K, flat_sp),
+        "ivf_flat_bfloat16": lambda q: ivf_flat.search(flat, q, K, flat_sp),
+        "ivf_flat_bf16rows-f32q": lambda q: ivf_flat.search(flat, q, K, flat_f32q),
+        **{f"ivf_flat_f32-p{p}": (lambda q, p=p: ivf_flat.search(cli, q, K, n_probes=p))
+           for p in CLI_PROBES},
         "ivf_pq": lambda q: ivf_pq.search(pq, q, K, pq_sp[torch.bfloat16]),
         "ivf_pq_int8lut": lambda q: ivf_pq.search(pq, q, K, pq_sp[torch.int8]),
         "ivf_rabitq": lambda q: ivf_rabitq.search(rq, q, K, rq_sp),
@@ -98,6 +106,7 @@ def patched(wrap):
 def record_calls(searches, q) -> dict:
     """{variant: (kernel name, wrapper, plain, args, kw)} from one search each."""
     calls = {}
+    searching = [""]
 
     def wrap(phase, f):
         if phase != "kernel":
@@ -106,7 +115,7 @@ def record_calls(searches, q) -> dict:
 
         def rec(*args, **kw):
             if name == "ivf_scan":
-                var = f"ivf_scan {str(args[0].dtype).removeprefix('torch.')}"
+                var = "ivf_scan " + searching[0].removeprefix("ivf_flat_")
             else:
                 mode = kw.get("mode", "pq")
                 lut = "int8lut" if kw.get("int8_mode") else "bf16"
@@ -116,7 +125,8 @@ def record_calls(searches, q) -> dict:
         return rec
 
     with patched(wrap):
-        for search in searches.values():
+        for name, search in searches.items():
+            searching[0] = name
             search(q)
     torch.cuda.synchronize()
     return calls
@@ -180,17 +190,19 @@ def main(argv=None) -> int:
     print(card)
     t0 = time.time()
     _lib.lib()
-    earlier = (build_earlier(args.parent_csrc, ("ivf_scan.cu", "pq_scan.cu"),
+    scan_sources = ("ivf_scan.cu", "ivf_scan_fma.cu", "pq_scan.cu")
+    earlier = (build_earlier(args.parent_csrc,
+                             [s for s in scan_sources if (args.parent_csrc / s).exists()],
                              ("cuvs_ivf_scan", "cuvs_pq_scan")) if args.parent_csrc else None)
     print(f"# builds: {time.time() - t0:.1f} s")
     report = {"card": card, "reps": args.reps, "variants": {}}
     if args.ptxas:
-        report["ptxas"] = {**ptxas_report("ivf_scan.cu"), **ptxas_report("pq_scan.cu")}
+        report["ptxas"] = {k: v for src in scan_sources for k, v in ptxas_report(src).items()}
         for name, use in report["ptxas"].items():
             print(f"# ptxas {name}: {use}")
     dev = torch.device("cuda", 0)
     ds = datasets.load("sift-128-euclidean", max_rows=N)
-    x = torch.from_numpy(ds.base).to(dev)
+    x = torch.from_numpy(ds.base).float().to(dev)  # as chip_smoke.py indexes it
     q = torch.from_numpy(ds.queries[:NQ].astype("float32")).to(dev)
     t0 = time.time()
     searches = indexes(x, ds.metric)

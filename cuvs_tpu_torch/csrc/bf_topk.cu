@@ -355,7 +355,7 @@ bf_topk_exact_f32_kernel(const float* __restrict__ q, const float* __restrict__ 
   auto q_row = [&](int r) -> const float* {
     return qb + r < B ? q + static_cast<size_t>(qb + r) * d : nullptr;
   };
-  const float* rows[Tile::kRowsPerThread];
+  Tile::Rows rows;
   run_chunks<Tile::kStages, Tile::kGroup>(
       n_slices * nk,
       [&](int j, int slot) {
@@ -591,7 +591,7 @@ bf_topk_approx_f32_kernel(const float* __restrict__ q, const float* __restrict__
   auto q_row = [&](int r) -> const float* {
     return qb + r < B ? q + static_cast<size_t>(qb + r) * d : nullptr;
   };
-  const float* rows[Tile::kRowsPerThread];
+  Tile::Rows rows;
   run_chunks<Tile::kStages, Tile::kGroup>(
       C * nk,
       [&](int j, int slot) {

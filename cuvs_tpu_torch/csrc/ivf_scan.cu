@@ -37,37 +37,17 @@
 //  * int8 rows accumulate exactly in int32, so their pools are bit-identical
 //    to the plain version's; bf16 rows sum the same exact products in the
 //    tensor cores' order (rtol 1e-4 / atol 1e-3 of the plain version).
-//  * f32 rows and f32 queries (not on the main path) keep the first version's
-//    FMA loop (tile_dot.cuh, ivf_scan_fma_kernel).
-// Both read norms by plain index into the flat sorted_norms and skip the
+//  * f32 rows, and bf16 rows with f32 queries, run on the fp32 tile
+//    (ivf_scan_fma.cu).
+// Both kernels read norms by plain index into the flat sorted_norms and skip the
 // window slices that hold no row of the list, which changes no output: every
 // score there is -inf and never inserted.
+#include "ivf_scan.cuh"
 #include "mma_tile.cuh"
-#include "tile_dot.cuh"
 
 #include <math.h>
 
 namespace cuvs_tpu_torch {
-
-constexpr int kMaxCap = 32;
-constexpr size_t kMaxSmem = 232448;  // dynamic shared memory a block may take
-
-// The cap-deep chain of one bin: strict >, the displaced entry moves down.
-template <int kDepth>
-__device__ __forceinline__ void chain_insert(float (&best)[kDepth], int (&bidx)[kDepth], int cap,
-                                             float v, int vi) {
-  if (!(v > best[cap - 1])) return;  // below the whole bin: no change
-  for (int r = 0; r < cap; ++r) {
-    if (v > best[r]) {
-      const float ob = best[r];
-      const int oi = bidx[r];
-      best[r] = v;
-      bidx[r] = vi;
-      v = ob;
-      vi = oi;
-    }
-  }
-}
 
 // bf16 or int8 rows and queries on tensor cores. kCap > 0: compile-time
 // depth, state in registers; kCap == 0: runtime depth cap <= kMaxCap in
@@ -187,94 +167,6 @@ ivf_scan_mma_kernel(const T* __restrict__ data, const float* __restrict__ norms,
     }
 }
 
-// f32 rows, or bf16 rows with f32 queries (and f32 rows with bf16 queries):
-// the FMA loop of tile_dot.cuh. grid = (n_tiles, ceil(M / kBQ)).
-template <typename T, typename TQ, int kCap>
-__global__ void __launch_bounds__(kThreads)
-ivf_scan_fma_kernel(const T* __restrict__ data, const float* __restrict__ norms,
-                    const TQ* __restrict__ q, const int* __restrict__ qidx,
-                    const int* __restrict__ al, const int* __restrict__ lo,
-                    const int* __restrict__ sizes, const float* __restrict__ scale_p, int M,
-                    int dp, int n_rows, int W, int cap_rt, int ip, float* __restrict__ out_v,
-                    uint8_t* __restrict__ out_i) {
-  constexpr int kDepth = kCap > 0 ? kCap : kMaxCap;
-  const int cap = kCap > 0 ? kCap : cap_rt;
-  __shared__ __align__(16) float qs[kBQ * kPad];
-  __shared__ __align__(16) float xs[kLanes * kPad];
-
-  const int t = blockIdx.x;
-  const int m0 = blockIdx.y * kBQ;
-  const int tq = threadIdx.x / kLaneThreads, tl = threadIdx.x % kLaneThreads;
-  const float scale = *scale_p;
-  const float half_inv = 0.5f / scale;
-  const int a = al[t];
-  const int l = lo[t];
-  const int h = l + sizes[t];
-
-  float best[kTQ][kTL][kDepth];
-  int bidx[kTQ][kTL][kDepth];
-#pragma unroll
-  for (int i = 0; i < kTQ; ++i)
-#pragma unroll
-    for (int j = 0; j < kTL; ++j)
-      for (int r = 0; r < cap; ++r) {
-        best[i][j][r] = -INFINITY;
-        bidx[i][j][r] = 0;
-      }
-
-  auto q_row = [&](int r) -> const TQ* {
-    const int m = m0 + r;
-    const int qi = m < M ? qidx[static_cast<size_t>(t) * M + m] : -1;
-    return qi >= 0 ? q + static_cast<size_t>(qi) * dp : nullptr;
-  };
-  const int cc_lo = h > l ? l / kLanes : 0;
-  const int cc_hi = h > l ? min((h + kLanes - 1) / kLanes, W / kLanes) : 0;
-  for (int cc = cc_lo; cc < cc_hi; ++cc) {
-    const int p0 = cc * kLanes;
-    auto x_row = [&](int r) -> const T* {
-      const int row = a + p0 + r;
-      return (row >= 0 && row < n_rows) ? data + static_cast<size_t>(row) * dp : nullptr;
-    };
-    float acc[kTQ][kTL];
-    slice_dots<TQ, T>(qs, xs, q_row, x_row, dp, tq, tl, acc);
-#pragma unroll
-    for (int j = 0; j < kTL; ++j) {
-      const int pos = p0 + tl + kLaneThreads * j;
-      const bool valid = pos >= l && pos < h;
-      const float pen = valid ? (ip ? 0.f : __fmul_rn(norms[a + pos], half_inv)) : INFINITY;
-#pragma unroll
-      for (int i = 0; i < kTQ; ++i)
-        chain_insert(best[i][j], bidx[i][j], cap, __fsub_rn(acc[i][j], pen), cc);
-    }
-  }
-  const float f = ip ? -scale : -2.0f * scale;
-  const int F = cap * kLanes;
-#pragma unroll
-  for (int i = 0; i < kTQ; ++i) {
-    const int m = m0 + tq * kTQ + i;
-    if (m >= M) continue;
-    const size_t o = (static_cast<size_t>(t) * M + m) * F;
-    for (int r = 0; r < cap; ++r)
-#pragma unroll
-      for (int j = 0; j < kTL; ++j) {
-        const int lane = tl + kLaneThreads * j;
-        out_v[o + r * kLanes + lane] = f * best[i][j][r];
-        out_i[o + r * kLanes + lane] = static_cast<uint8_t>(bidx[i][j][r]);
-      }
-  }
-}
-
-struct ScanArgs {
-  const void* data;
-  const float* norms;
-  const void* q;
-  const int *qidx, *al, *lo, *sizes;
-  const float* scale;
-  int n_tiles, M, dp, n_rows, W, cap, ip;
-  float* out_v;
-  uint8_t* out_i;
-};
-
 // The widest slot block (kWM = 2, then 1) whose shared memory fits.
 template <typename T, int kWM = 2>
 cudaError_t launch_mma(const ScanArgs& s, cudaStream_t st) {
@@ -300,17 +192,6 @@ cudaError_t launch_mma(const ScanArgs& s, cudaStream_t st) {
   return cudaGetLastError();
 }
 
-template <typename T, typename TQ>
-cudaError_t launch_fma(const ScanArgs& s, cudaStream_t st) {
-  auto kernel = s.cap == 2 ? ivf_scan_fma_kernel<T, TQ, 2> : ivf_scan_fma_kernel<T, TQ, 0>;
-  const dim3 grid(s.n_tiles, (s.M + kBQ - 1) / kBQ);
-  kernel<<<grid, kThreads, 0, st>>>(static_cast<const T*>(s.data), s.norms,
-                                    static_cast<const TQ*>(s.q), s.qidx, s.al, s.lo, s.sizes,
-                                    s.scale, s.M, s.dp, s.n_rows, s.W, s.cap, s.ip, s.out_v,
-                                    s.out_i);
-  return cudaGetLastError();
-}
-
 }  // namespace cuvs_tpu_torch
 
 using namespace cuvs_tpu_torch;
@@ -320,7 +201,7 @@ extern "C" int cuvs_ivf_scan(int dtype, int qdtype, const void* data, const floa
                              const int* sizes, const float* scale, int n_tiles, int M, int dp,
                              int n_rows, int W, int cap, int ip, float* out_v, uint8_t* out_i,
                              void* stream) {
-  if (cap < 1 || cap > kMaxCap || W % kLanes || W / kLanes > 256)
+  if (cap < 1 || cap > kMaxCap || W % kSliceRows || W / kSliceRows > 256)
     return static_cast<int>(cudaErrorInvalidValue);
   const ScanArgs s{data, norms, q, qidx, al, lo, sizes, scale, n_tiles, M, dp, n_rows, W, cap,
                    ip, out_v, out_i};
@@ -331,11 +212,9 @@ extern "C" int cuvs_ivf_scan(int dtype, int qdtype, const void* data, const floa
   else if (dtype == kBF16 && qdtype == kBF16)
     e = launch_mma<__nv_bfloat16>(s, st);
   else if (dtype == kF32 && qdtype == kF32)
-    e = launch_fma<float, float>(s, st);
-  else if (dtype == kF32 && qdtype == kBF16)
-    e = launch_fma<float, __nv_bfloat16>(s, st);
+    e = launch_fma<float>(s, st);
   else if (dtype == kBF16 && qdtype == kF32)
-    e = launch_fma<__nv_bfloat16, float>(s, st);
+    e = launch_fma<__nv_bfloat16>(s, st);
   else
     e = cudaErrorInvalidValue;
   return static_cast<int>(e);

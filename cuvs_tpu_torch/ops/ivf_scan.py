@@ -3,9 +3,10 @@
 Two hand-written CUDA kernels score each pair tile of ``group_pairs_tiled``
 (M query slots probing one list) against its list's window and keep the best
 ``cap`` rows per strided lane bin, so no [tiles, M, W] score tensor reaches
-device memory: ``fused_ivf_scan`` (``csrc/ivf_scan.cu``) over raw rows
-(IVF-Flat), ``fused_pq_scan`` (``csrc/pq_scan.cu``) over packed quantized
-codes through a per-slot lookup table (IVF-PQ and IVF-RaBitQ). Each wrapper
+device memory: ``fused_ivf_scan`` (``csrc/ivf_scan.cu``; f32 rows in
+``csrc/ivf_scan_fma.cu``) over raw rows (IVF-Flat), ``fused_pq_scan``
+(``csrc/pq_scan.cu``) over packed quantized codes through a per-slot lookup
+table (IVF-PQ and IVF-RaBitQ). Each wrapper
 launches its kernel for CUDA tensors (or raises) and runs its plain PyTorch
 version, ``*_reference`` with the same output contract, for CPU tensors.
 """
@@ -74,6 +75,8 @@ def fused_ivf_scan(sorted_data, sorted_norms, queries, qidx, starts_al, lo, size
     if queries.device != dev:
         raise ValueError(f"queries are on {queries.device}, sorted_data on {dev}")
     q = _queries_padded(queries, dp, sorted_data.dtype)
+    if sorted_data.dtype == torch.float32:
+        q = q.float()  # the fp32 tile takes f32 queries; widening bf16 is exact
     norms = sorted_norms.to(device=dev, dtype=torch.float32).contiguous()
     if norms.shape[0] < n_rows:
         raise ValueError("sorted_norms is shorter than sorted_data")

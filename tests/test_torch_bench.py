@@ -32,13 +32,16 @@ from hypothesis import strategies as st
 from cuvs_tpu.bench import competitors as jax_competitors
 from cuvs_tpu.bench import constraints as jax_constraints
 from cuvs_tpu.bench import datasets as jax_datasets
+from cuvs_tpu.bench import gt as jax_gt
 from cuvs_tpu.bench import plot as jax_plot
 from cuvs_tpu.bench import runner as jax_runner
 from cuvs_tpu.bench import sweep as jax_sweep
 from cuvs_tpu.cluster import kmeans_balanced as jax_kmb
+from cuvs_tpu.neighbors import brute_force as jax_brute_force
 from cuvs_tpu_torch.bench import __main__ as cli
-from cuvs_tpu_torch.bench import competitors, constraints, datasets, plot, runner, sweep
+from cuvs_tpu_torch.bench import competitors, constraints, datasets, gt, plot, runner, sweep
 from cuvs_tpu_torch.cluster import kmeans_balanced
+from cuvs_tpu_torch.neighbors import brute_force
 from cuvs_tpu_torch.utils import tracing
 from tests.torch_parity import ids_match_modulo_ties
 from tests.utils import calc_recall, make_blobs, naive_knn
@@ -527,3 +530,34 @@ def test_profiler_trace_writes_a_chrome_trace(tmp_path):
     assert "bench_span" in names
     with pytest.raises(RuntimeError):
         tracing.stop_profiler_trace()
+
+
+@pytest.mark.parametrize("verbose", [True, False])
+def test_exact_ground_truth_matches_reference(verbose, capsys):
+    x = make_blobs(np.random.default_rng(5), 2000, 24, 8)
+    q = x[:40] + 0.01
+    ids = gt.exact_ground_truth(brute_force.build(x, device="cpu"), torch.from_numpy(q), 10,
+                                verbose=verbose)
+    ref = jax_gt.exact_ground_truth(jax_brute_force.build(x), q, 10, verbose=verbose)
+    d_ref, _ = naive_knn(q, x, 10)
+    ids_match_modulo_ties(ids, ref, d_ref)
+    assert capsys.readouterr().err == ""
+
+
+@pytest.mark.parametrize("verbose", [True, False])
+def test_exact_ground_truth_prints_the_disagreement_then_raises(verbose, capsys, monkeypatch):
+    """Unlike the reference, a disagreement raises; ``verbose`` prints it
+    first, in the reference's words."""
+    x = make_blobs(np.random.default_rng(5), 2000, 24, 8)
+    index = brute_force.build(x, device="cpu")
+    real = brute_force.search
+
+    def wrong_fused(idx, queries, k, **kw):
+        d, i = real(idx, queries, k, **kw)
+        return (d, torch.flip(i, [0])) if kw.get("fused") else (d, i)
+
+    monkeypatch.setattr(brute_force, "search", wrong_fused)
+    with pytest.raises(gt.GroundTruthMismatch):
+        gt.exact_ground_truth(index, torch.from_numpy(x[:40]), 10, verbose=verbose)
+    err = capsys.readouterr().err
+    assert ("fused GT disagrees with unfused" in err) == verbose

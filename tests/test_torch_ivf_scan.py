@@ -51,14 +51,15 @@ def _scan_inputs(rng, dtype):
         qq = np.clip(np.round(q / s), -127, 127).astype(np.int8)
         return (xq, qq, jnp.asarray(xq), jnp.asarray(qq), torch.from_numpy(xq),
                 torch.from_numpy(qq), norms, s * s)
-    if dtype == "bf16":
-        return (x, q, jnp.asarray(x, jnp.bfloat16), jnp.asarray(q, jnp.bfloat16),
-                torch.from_numpy(x).bfloat16(), torch.from_numpy(q).bfloat16(), norms, 1.0)
-    return (x, q, jnp.asarray(x), jnp.asarray(q), torch.from_numpy(x), torch.from_numpy(q),
-            norms, 1.0)
+    # "<rows>-<queries>q": the mixed pairs the wrapper widens to f32 products
+    xdt, qdt = dtype.removesuffix("q").split("-") if "-" in dtype else (dtype, dtype)
+    jdt = {"f32": jnp.float32, "bf16": jnp.bfloat16}
+    tdt = {"f32": torch.float32, "bf16": torch.bfloat16}
+    return (x, q, jnp.asarray(x, jdt[xdt]), jnp.asarray(q, jdt[qdt]),
+            torch.from_numpy(x).to(tdt[xdt]), torch.from_numpy(q).to(tdt[qdt]), norms, 1.0)
 
 
-@pytest.mark.parametrize("dtype", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("dtype", ["f32", "bf16", "int8", "f32-bf16q", "bf16-f32q"])
 @pytest.mark.parametrize("ip", [False, True])
 @pytest.mark.parametrize("cap", [2, 3])
 def test_scan_pool_matches_pallas_pool(dtype, ip, cap):

@@ -6,7 +6,7 @@ import pytest
 import torch
 
 from cuvs_tpu_torch.bench import roofline
-from cuvs_tpu_torch.ops import bf_topk
+from cuvs_tpu_torch.ops import bf_topk, ivf_scan
 
 
 def test_bound_is_the_larger_of_operations_and_bytes():
@@ -38,3 +38,23 @@ def test_scan_pairs_count_valid_slots_and_list_rows():
     sizes = torch.tensor([100, 50, 300], dtype=torch.int32)
     # tile 0: 2 slots x 100 rows; tile 1: no slot; tile 2: 1 slot x (256 - 200) rows
     assert roofline._scan_pairs(qidx, lo, sizes, 256) == 2 * 100 + 56
+
+
+@pytest.mark.parametrize("dtype,qdtype,peak", [(torch.float32, torch.float32, "fp32"),
+                                               (torch.bfloat16, torch.float32, "fp32"),
+                                               (torch.bfloat16, torch.bfloat16, "bf16")])
+def test_scan_bound_takes_the_products_type(dtype, qdtype, peak, monkeypatch):
+    monkeypatch.setattr(roofline, "HBM_BYTES_PER_S", 1e30)  # the operations bound it
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.standard_normal((1024, 32)).astype(np.float32)).to(dtype)
+    q = torch.from_numpy(rng.standard_normal((8, 32)).astype(np.float32)).to(qdtype)
+    norms = x.float().pow(2).sum(1)
+    qidx = torch.tensor([[0, 1, -1, 3], [4, -1, -1, -1]], dtype=torch.int32)
+    tiles = [torch.tensor(v, dtype=torch.int32) for v in ([0, 256], [5, 0], [300, 128])]
+    args = (x, norms, q, qidx, *tiles, 1.0)
+    kw = dict(W=512, m_tile=4, ip=False, int8_mode=False, cap=2)
+    out = ivf_scan.fused_ivf_scan(*args, **kw)
+    got = roofline.kernel_bound("ivf_scan", args, kw, out)
+    ops = 2.0 * (3 * 300 + 1 * 128) * 32
+    assert got == {"bound_ms": pytest.approx(ops / roofline.PEAK[peak] * 1e3),
+                   "bound_by": "operations"}
