@@ -20,7 +20,10 @@ same shape): 1,000,000 x 128 f32, 4096 queries, k = 10.
   6. IVF-PQ (1024 lists, pq_dim 64, 8 bits, per-subspace codebooks: the
      ``base`` group of cuvs_tpu/bench/configs/ivf_pq.yaml) searched with 50
      probes through the fused quantized-code scan kernel, bf16 table alone
-     and + refine from 40 candidates, int8 table + refine;
+     and + refine from 40 candidates, int8 table + refine; then one search
+     at k = 100 (bf16 table: the kernel's deep bins, cap 4, recorded as the
+     variant ``pq-bf16-k100``), its first 10 ids' recall at most 0.005 below
+     the k = 10 search's;
   7. IVF-RaBitQ (1024 lists, 3 bits per dimension: ivf_rabitq.yaml ``base``;
      128 x 3 bits = 12 words, so codes straddle words) with 50 probes
      through the same kernel, alone and + refine;
@@ -71,8 +74,11 @@ same shape): 1,000,000 x 128 f32, 4096 queries, k = 10.
      itopk 64 (recall and QPS printed, no floor);
  20. CAGRA built through IVF-PQ + refine (96 -> 64, of cagra.yaml ``base``:
      the degree of phase 19's graph, so the two builds compare): one fused
-     ``pq_scan`` launch per 4096-row batch of the self-search (recorded as
-     its own variant), the knn graph's recall@96 on phase 18's sampled rows,
+     ``pq_scan`` launch per 4096-row batch of the self-search (k = 194,
+     cap 7: recorded as its own variant), the graph's split per batch (the
+     kernel against coarse search, grouping, the pool merge and refine,
+     CUDA-event times summed over the build), the knn graph's recall@96 on
+     phase 18's sampled rows,
      and its search at itopk 64 alone and + refine (at most 0.10 below phase
      19's itopk 64);
  21. unfused brute force for L1 and Linf over the 1M rows with 256 queries,
@@ -257,6 +263,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 N, NQ, K, CAND = 1_000_000, 4096, 10, 40
 N_LISTS, N_PROBES = 1984, 64  # bench.py's n_lists rule at 1M rows
 Q_LISTS, Q_PROBES = 1024, 50  # IVF-PQ, IVF-RaBitQ, IVF-SQ (bench/configs/*.yaml base)
+DEEP_K = 100  # phase 6's deep-bin search: the other k of ann-benchmarks and cuvs-bench
 N_FIRST, SLICE = 900_000, 100_000  # extend phases: build on the first rows; streaming slices
 SUB = 100_000  # the rows of the long tail's phases that are quadratic in n or host-bound
 # the rows of CAGRA's merged halves (phase 24), the ACE build (25), the iterative build (26),
@@ -1139,7 +1146,7 @@ def main() -> int:
         print("chip_smoke.py: needs a CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, HERE)
-    from cuvs_tpu_torch.bench import datasets, roofline
+    from cuvs_tpu_torch.bench import datasets, roofline, scan_compare
     from cuvs_tpu_torch.bench.gt import exact_ground_truth, id_recall
     import numpy as np
 
@@ -1266,6 +1273,20 @@ def main() -> int:
             x, qq, ivf_pq.search(pq, qq, CAND, pq_sp[torch.bfloat16])[1], K, metric=ds.metric))
         phase(f"ivf_pq_fused_int8lut_p{Q_PROBES}_refine", lambda qq: refine.refine(
             x, qq, ivf_pq.search(pq, qq, CAND, pq_sp[torch.int8])[1], K, metric=ds.metric))
+        # k = 100: the kernel's deep bins (cap 4)
+        t0 = time.time()
+        with tagged(f"-k{DEEP_K}"):
+            d100, i100 = ivf_pq.search(pq, q, DEEP_K, pq_sp[torch.bfloat16])
+        torch.cuda.synchronize()
+        check(d100.shape == (q.shape[0], DEEP_K) and bool(torch.isfinite(d100).all()),
+              f"ivf_pq k={DEEP_K}: shape or non-finite distances")
+        rec100 = id_recall(i100[:, :K].cpu(), gti)
+        rec10 = results[f"ivf_pq_fused_p{Q_PROBES}"]["recall"]
+        print(f"# ivf_pq_fused_p{Q_PROBES} k={DEEP_K} (cap {-(-DEEP_K // 32)}): recall@10 of its "
+              f"first {K} ids {rec100:.4f} (k={K}: {rec10:.4f}; {time.time() - t0:.1f} s)")
+        check(rec100 >= rec10 - RECALL_SLACK,
+              f"ivf_pq k={DEEP_K}: first {K} ids' recall below k={K}'s")
+        del d100, i100
         # 7. IVF-RaBitQ, 3 bits: the same kernel's rabitq epilogue
         rq = build_ivf("ivf_rabitq", lambda: ivf_rabitq.build(
             x, n_lists=Q_LISTS, bits_per_dim=3, metric=ds.metric, seed=0))
@@ -1481,11 +1502,13 @@ def main() -> int:
         del cg32, knn128, split
         phase_peak("cagra search")
         # 20. CAGRA through IVF-PQ + refine, cagra.yaml base 96 -> 64
-        split20 = {}
+        split20, events20 = {}, {}
         launches_before = dict(ivf_scan.LAUNCHES)
         t0 = time.time()
         with tagged("-cagra-build"), timed_calls([(knn_graph, "build_knn_graph"),
-                                                  (graph_core, "optimize")], split20):
+                                                  (graph_core, "optimize")], split20), \
+                scan_compare.phase_events(events20, {**scan_compare.PHASES,
+                                                     "refine": [(refine, "refine")]}):
             cg2 = cagra.build(x, intermediate_graph_degree=96, graph_degree=64, build_algo="ivf_pq",
                               metric=ds.metric, seed=0)
         torch.cuda.synchronize()
@@ -1493,6 +1516,13 @@ def main() -> int:
         print(f"# cagra build ivf_pq 96 -> 64: {time.time() - t0:.1f} s (knn graph: "
               f"{split20['build_knn_graph'][0]:.1f} s, {pq_builds} pq_scan launches; optimize: "
               f"{split20['optimize'][0]:.1f} s)")
+        n_batches = -(-n // NQ)
+        per_batch = {ph: sum(a.elapsed_time(b) for a, b in ev) / n_batches
+                     for ph, ev in events20.items()}
+        knn_ms = split20["build_knn_graph"][0] * 1e3 / n_batches
+        per_batch["rest"] = knn_ms - sum(per_batch.values())
+        print(f"# cagra ivf_pq knn graph, ms per {NQ}-row batch ({n_batches} batches): "
+              + ", ".join(f"{ph} {ms:.2f}" for ph, ms in per_batch.items()) + f" ({smi})")
         check(pq_builds >= -(-n // NQ), "cagra ivf_pq build: fewer pq_scan launches than batches")
         check_graph(cg2.graph, n, "cagra ivf_pq graph")
         knn96 = split20["build_knn_graph"][1][0]
@@ -2138,6 +2168,8 @@ def main() -> int:
             v["share"] = v["bound_ms"] / ms
             if mod is bf_topk:
                 v["product_ms"] = roofline.product_ms(args[0], args[1])
+            if name == "pq_scan":  # cap > 2: the deep bins' source
+                v["source"] = source.replace(".cu", "_deep.cu") if kw.get("cap", 2) > 2 else source
             shape = "x".join(str(s) for s in out[0].shape)
             print(f"# {name} [{var}], {v['launches']} launches: pool {shape} matches plain "
                   f"(max abs err {err:.3g}, "

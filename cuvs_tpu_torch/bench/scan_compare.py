@@ -9,11 +9,17 @@ queries, k = 10; IVF-Flat with 1984 lists in bf16 and 64 probes; IVF-PQ with
 default storage: f32 rows) searched at 10 and 100 probes, and the bf16 index
 searched with f32 queries, it builds the indexes, records the scan wrappers'
 calls of one search each, and times per variant (ivf_scan bfloat16,
-bf16rows-f32q, f32-p10, f32-p100; pq_scan pq-bf16, pq-int8lut, rabitq) this
+bf16rows-f32q, f32-p10, f32-p100; pq_scan pq-bf16, pq-int8lut, rabitq-3bit) this
 tree's kernel, the kernel built from the sources in DIR (an earlier
 ``cuvs_tpu_torch/csrc``, same C interface) and the plain PyTorch version, in
-turns: plain, new, earlier, earlier, new, plain. Each time is the CUDA-event
-mean of ``reps`` calls after a warm-up. Beside them: the bound (``roofline.py``), the kernel's share of
+turns: plain, new, earlier, earlier, new, plain. The deep bins (cap =
+ceil(k / 32) > 2) have variants of their own: the same IVF-Flat (f32 at 100
+probes, bf16), IVF-PQ (bf16 and int8 tables) and IVF-RaBitQ searches at
+k = 100 (``-k100``: cap 4), and the search of CAGRA's IVF-PQ graph build
+(1000 lists, the default IVF-PQ parameters, 50 probes, the first 4096 base
+rows as queries) at k = 194 (``-k194``: cap 7, the 96 -> 64 build of
+chip_smoke.py) and 258 (``-k258``: cap 9, cuVS's default 128 -> 64).
+Each time is the CUDA-event mean of ``reps`` calls after a warm-up. Beside them: the bound (``roofline.py``), the kernel's share of
 it, how far its pool is from the plain version's, and for the quantized scan
 the shared-memory ceiling of its table lookups (``smem_ms``: every lookup's
 table bytes, S per valid (slot, row) pair, read once at 128 bytes per clock
@@ -50,6 +56,10 @@ N, NQ, K = 1_000_000, 4096, 10
 N_LISTS, N_PROBES = 1984, 64  # chip_smoke.py's IVF-Flat
 CLI_LISTS, CLI_PROBES = 1024, (10, 100)  # the bench CLI's f32 IVF-Flat (configs/ivf_flat.yaml)
 Q_LISTS, Q_PROBES = 1024, 50  # chip_smoke.py's IVF-PQ and IVF-RaBitQ
+DEEP_K = 100  # the k of the deep-bin variants of those searches (cap 4)
+# CAGRA's IVF-PQ graph build at 1M rows (knn_graph.build_knn_graph): sqrt(n)
+# lists, 50 probes, (k + 1) * 2 candidates for 96 and 128 neighbours
+CAGRA_LISTS, CAGRA_PROBES, CAGRA_KS = 1000, 50, (194, 258)
 SMEM_BYTES_PER_CLOCK = 128  # per SM: 32 banks of 4 bytes
 
 # split phase -> the functions whose calls it sums (module, attribute)
@@ -76,7 +86,10 @@ def indexes(x: torch.Tensor, metric) -> dict:
              for lut in (torch.bfloat16, torch.int8)}
     rq = ivf_rabitq.build(x, n_lists=Q_LISTS, bits_per_dim=3, metric=metric, seed=0)
     rq_sp = ivf_rabitq.SearchParams(n_probes=Q_PROBES, scan_algo="fused")
-    return {
+    cg = ivf_pq.build(x, ivf_pq.IndexParams(n_lists=CAGRA_LISTS, metric=metric, seed=0,
+                                            kmeans_trainset_fraction=100_000 / x.shape[0]))
+    base_q = x[:NQ]  # the graph build's first batch: base rows as queries
+    searches = {
         "ivf_flat_bfloat16": lambda q: ivf_flat.search(flat, q, K, flat_sp),
         "ivf_flat_bf16rows-f32q": lambda q: ivf_flat.search(flat, q, K, flat_f32q),
         **{f"ivf_flat_f32-p{p}": (lambda q, p=p: ivf_flat.search(cli, q, K, n_probes=p))
@@ -84,14 +97,26 @@ def indexes(x: torch.Tensor, metric) -> dict:
         "ivf_pq": lambda q: ivf_pq.search(pq, q, K, pq_sp[torch.bfloat16]),
         "ivf_pq_int8lut": lambda q: ivf_pq.search(pq, q, K, pq_sp[torch.int8]),
         "ivf_rabitq": lambda q: ivf_rabitq.search(rq, q, K, rq_sp),
+        # the deep bins: the same searches at k = 100, and the graph build's
+        f"ivf_flat_f32-k{DEEP_K}": lambda q: ivf_flat.search(cli, q, DEEP_K,
+                                                             n_probes=CLI_PROBES[-1]),
+        f"ivf_flat_bfloat16-k{DEEP_K}": lambda q: ivf_flat.search(flat, q, DEEP_K, flat_sp),
+        f"ivf_pq-k{DEEP_K}": lambda q: ivf_pq.search(pq, q, DEEP_K, pq_sp[torch.bfloat16]),
+        f"ivf_pq_int8lut-k{DEEP_K}": lambda q: ivf_pq.search(pq, q, DEEP_K, pq_sp[torch.int8]),
+        f"ivf_rabitq-k{DEEP_K}": lambda q: ivf_rabitq.search(rq, q, DEEP_K, rq_sp),
     }
+    for k in CAGRA_KS:
+        searches[f"cagra_ivf_pq-k{k}"] = (
+            lambda q, k=k: ivf_pq.search(cg, base_q, k, n_probes=CAGRA_PROBES))
+    return searches
 
 
 @contextlib.contextmanager
-def patched(wrap):
-    """Replace each PHASES function f by wrap(phase, f) while inside."""
+def patched(wrap, phases=None):
+    """Replace each function f of ``phases`` (PHASES) by wrap(phase, f) while
+    inside."""
     saved = []
-    for phase, fns in PHASES.items():
+    for phase, fns in (PHASES if phases is None else phases).items():
         for mod, attr in fns:
             f = getattr(mod, attr)
             saved.append((mod, attr, f))
@@ -101,6 +126,26 @@ def patched(wrap):
     finally:
         for mod, attr, f in saved:
             setattr(mod, attr, f)
+
+
+@contextlib.contextmanager
+def phase_events(events: dict, phases=None):
+    """Record CUDA events around every call of each function of ``phases``
+    (PHASES) while inside: events[phase] gains (start, end) per call, read
+    once the card has caught up."""
+    def wrap(phase, f):
+        def timed_call(*args, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            res = f(*args, **kw)
+            end.record()
+            events.setdefault(phase, []).append((start, end))
+            return res
+        return timed_call
+
+    with patched(wrap, phases):
+        yield
 
 
 def record_calls(searches, q) -> dict:
@@ -119,7 +164,10 @@ def record_calls(searches, q) -> dict:
             else:
                 mode = kw.get("mode", "pq")
                 lut = "int8lut" if kw.get("int8_mode") else "bf16"
-                var = f"pq_scan {mode if mode == 'rabitq' else 'pq-' + lut}"
+                var = ("pq_scan " + (f"rabitq-{kw['bits']}bit" if mode == "rabitq"
+                                     else f"pq-{lut}"))
+                if "-k" in searching[0]:
+                    var += "-k" + searching[0].rsplit("-k", 1)[1]
             calls[var] = (name, f, getattr(ops_scan, f.__name__ + "_reference"), args, kw)
             return f(*args, **kw)
         return rec
@@ -149,20 +197,8 @@ def search_split(searches, q, reps: int) -> dict:
     out = {}
     for name, search in searches.items():
         events = {phase: [] for phase in PHASES}
-
-        def wrap(phase, f):
-            def timed_call(*args, **kw):
-                start = torch.cuda.Event(enable_timing=True)
-                end = torch.cuda.Event(enable_timing=True)
-                start.record()
-                res = f(*args, **kw)
-                end.record()
-                events[phase].append((start, end))
-                return res
-            return timed_call
-
         search(q)  # warm-up
-        with patched(wrap):
+        with phase_events(events):
             for _ in range(reps):
                 search(q)
         torch.cuda.synchronize()
@@ -190,7 +226,7 @@ def main(argv=None) -> int:
     print(card)
     t0 = time.time()
     _lib.lib()
-    scan_sources = ("ivf_scan.cu", "ivf_scan_fma.cu", "pq_scan.cu")
+    scan_sources = ("ivf_scan.cu", "ivf_scan_fma.cu", "pq_scan.cu", "pq_scan_deep.cu")
     earlier = (build_earlier(args.parent_csrc,
                              [s for s in scan_sources if (args.parent_csrc / s).exists()],
                              ("cuvs_ivf_scan", "cuvs_pq_scan")) if args.parent_csrc else None)

@@ -5,14 +5,16 @@ Two hand-written CUDA kernels score each pair tile of ``group_pairs_tiled``
 ``cap`` rows per strided lane bin, so no [tiles, M, W] score tensor reaches
 device memory: ``fused_ivf_scan`` (``csrc/ivf_scan.cu``; f32 rows in
 ``csrc/ivf_scan_fma.cu``) over raw rows (IVF-Flat), ``fused_pq_scan``
-(``csrc/pq_scan.cu``) over packed quantized codes through a per-slot lookup
-table (IVF-PQ and IVF-RaBitQ). Each wrapper
-launches its kernel for CUDA tensors (or raises) and runs its plain PyTorch
-version, ``*_reference`` with the same output contract, for CPU tensors.
+(``csrc/pq_scan.cu``; bins deeper than 2 in ``csrc/pq_scan_deep.cu``) over
+packed quantized codes through a per-slot lookup table (IVF-PQ and
+IVF-RaBitQ). Each wrapper launches its kernel for CUDA tensors (or raises)
+and runs its plain PyTorch version, ``*_reference`` with the same output
+contract, for CPU tensors.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
 import torch
@@ -172,6 +174,7 @@ def _bin_insert(v: torch.Tensor, cap: int) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 _PQ_MODES = ("pq", "rabitq")
+_PQ_SHARES = 4  # threads that share a window row in the kernel, each summing its codes
 
 
 def _pq_operands(codes_t, queries_rot, cb_t, centers_tile, qidx, book, bits, mode, sorted_fr,
@@ -295,8 +298,10 @@ def fused_pq_scan_reference(codes_t, sorted_norms, queries_rot, cb_t, centers_ti
                             use_pen: bool = False, int8_mode: bool = False, *, pq_len: int
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of ``fused_pq_scan`` (same contract). Sums in
-    the kernel's order: each table entry over its rows in order, each score
-    over s = 0..S-1 in order."""
+    the kernel's order: each table entry over its rows in order; each score
+    in four shares, share j the codes of periods j, j + 4, ... in code order
+    (a period: the fewest codes that fill whole 32-bit words), then the
+    shares in order j = 0..3."""
     dev = codes_t.device
     words, S = _pq_operands(codes_t, queries_rot, cb_t, centers_tile, qidx, book, bits, mode,
                             sorted_fr, W, cap, pq_len)
@@ -313,6 +318,7 @@ def fused_pq_scan_reference(codes_t, sorted_norms, queries_rot, cb_t, centers_ti
     lo = lo.to(device=dev, dtype=torch.int64)
     hi = lo + sizes.to(device=dev, dtype=torch.int64)
     f = -1.0 if (ip or rabitq) else -2.0
+    period = 32 // math.gcd(32, bits)
     pos = torch.arange(W, device=dev)
     out_v = torch.empty((n_tiles, M, cap * 128), dtype=torch.float32, device=dev)
     out_i = torch.empty((n_tiles, M, cap * 128), dtype=torch.uint8, device=dev)
@@ -344,10 +350,14 @@ def fused_pq_scan_reference(codes_t, sorted_norms, queries_rot, cb_t, centers_ti
         codes = bitpack.unpack(rw, bits, S).long()
         in_book = codes < book
         codes = codes.clamp_max(book - 1)
-        dots = torch.zeros((T, M, W), dtype=lut.dtype, device=dev)
+        shares = [torch.zeros((T, M, W), dtype=lut.dtype, device=dev) for _ in range(_PQ_SHARES)]
         for s in range(S):
             part = torch.gather(lut[:, :, s, :], 2, codes[:, None, :, s].expand(T, M, W))
-            dots = dots + torch.where(in_book[:, None, :, s], part, 0)
+            j = s // period % _PQ_SHARES
+            shares[j] = shares[j] + torch.where(in_book[:, None, :, s], part, 0)
+        dots = shares[0]
+        for share in shares[1:]:
+            dots = dots + share
         dots = dots.float() * ls[:, None, None] if int8_mode else dots
         valid = (pos[None, :] >= lo[t0:t1, None]) & (pos[None, :] < hi[t0:t1, None])
         nrm = torch.where(rows < norms.shape[0], norms[rows.clamp(0, norms.shape[0] - 1)], 0.0)

@@ -10,8 +10,10 @@ Tolerances: float32 and bfloat16 pools are compared at rtol 1e-5 / atol 1e-4
 order; the IVF scan at GIST's width, dp = 960, allows atol 1e-4 * dp / 128);
 int8 pools are integer arithmetic and must be identical. Ids must be
 equal except where two candidates' values tie within that tolerance. The
-quantized-code scan with an int8 table may differ where an entry's lut/scale
-sits on a rounding boundary: at most 0.1% of its pool entries.
+quantized-code scan sums every score in one order with its plain version, so
+its pools are bit-identical with a bf16 table; with an int8 table they may
+differ where an entry's lut/scale sits on a rounding boundary: at most 0.1%
+of its pool entries.
 """
 
 import numpy as np
@@ -217,9 +219,14 @@ _PQ_GEOM = dict(al=[0, 128, 1024, 2048, 2944, 3072], lo=[0, 37, 5, 0, 100, 0],
                 sizes=[900, 600, 0, 1024, 700, 1], M=100, W=1024, n_pad=4096, nq=50)
 
 
+# the deep bins' depth classes (4, 8, 16, 32) at and past each class's edge,
+# and cap 1 on the two-deep bins
+_DEEP_CAPS = [1, 4, 7, 8, 9, 16, 17, 32]
+
+
 @pytest.mark.parametrize("ip,use_pen", [(False, False), (True, False), (True, True)])
 @pytest.mark.parametrize("int8", [False, True])
-@pytest.mark.parametrize("cap", [2, 3, 5])
+@pytest.mark.parametrize("cap", [2, 3, 5] + _DEEP_CAPS)
 @pytest.mark.parametrize("S,book", [(64, 256), (32, 16)])
 def test_pq_scan_kernel_matches_plain_pq(cuda, ip, use_pen, int8, cap, S, book):
     case = pq_scan_case(cap + 7 * int8 + S, "pq", 8, S, book, 128 // S, use_pen=use_pen,
@@ -234,7 +241,7 @@ def test_pq_scan_kernel_matches_plain_pq(cuda, ip, use_pen, int8, cap, S, book):
 
 @pytest.mark.parametrize("bits", [1, 3, 5, 8])
 @pytest.mark.parametrize("ip", [False, True])
-@pytest.mark.parametrize("cap", [2, 3, 5])
+@pytest.mark.parametrize("cap", [2, 3, 5] + _DEEP_CAPS)
 def test_pq_scan_kernel_matches_plain_rabitq(cuda, bits, ip, cap):
     case = pq_scan_case(bits + 10 * cap, "rabitq", bits, 128, 1 << bits, 1, **_PQ_GEOM)
     args, kw = _pq_scan_args(case, "rabitq", bits, 1 << bits, 1, ip, False, False, cap,
@@ -253,9 +260,9 @@ def _assert_pq_pool(kv, ki, rv, ri, int8):
     close = (kv[fin] - rv[fin]).abs() <= ATOL + RTOL * rv[fin].abs()
     if int8:  # a table entry on a rounding boundary may round the other way
         assert close.float().mean() >= 0.999
-    else:
-        assert bool(close.all())
-    assert (ki != ri).float().mean() < 0.01
+        assert (ki != ri).float().mean() < 0.01
+    else:  # the same sums in the same order
+        assert torch.equal(kv, rv) and torch.equal(ki, ri)
 
 
 def _lane_periodic(n, period):
@@ -383,13 +390,43 @@ def test_pq_scan_full_tiles_match_plain(cuda, mode, int8, bits, S, book, ip, tie
         _assert_pq_pool(kv, ki, rv, ri, int8)
 
 
+# deep bins on full 128-slot tiles and on 13-slot tiles (no slot count of a
+# block divides 13: the last block holds empty slots past M), each main-path
+# variant, with and without tied tables (bins see exact ties at every depth)
+@pytest.mark.parametrize("mode,int8,bits,S,book", [("pq", False, 8, 64, 256),
+                                                  ("pq", True, 8, 64, 256),
+                                                  ("rabitq", False, 3, 128, 8)])
+@pytest.mark.parametrize("M", [128, 13])
+@pytest.mark.parametrize("tied", [False, True])
+@pytest.mark.parametrize("cap", [3, 4, 7, 9, 16, 17, 32])
+def test_pq_scan_deep_tiles_match_plain(cuda, mode, int8, bits, S, book, M, tied, cap):
+    rng = np.random.default_rng(cap + 3 * M + 11 * tied)
+    pq_len = 128 // S
+    ip = cap % 2 == 1
+    case = pq_scan_case(bits + 5 * int8 + cap, mode, bits, S, book, pq_len,
+                        **{**_PQ_FULL, "M": M})
+    case["qidx"][1] = -1
+    if tied:
+        case = _tied_tables(case, rng, mode)
+    args, kw = _pq_scan_args(case, mode, bits, book, pq_len, ip, False, int8, cap,
+                             _PQ_FULL["W"], cuda)
+    kv, ki = ivf_scan.fused_pq_scan(*args, **kw)
+    torch.cuda.synchronize()
+    rv, ri = ivf_scan.fused_pq_scan_reference(*args, **kw)
+    if tied:
+        _assert_pool(kv, ki, rv, ri, exact_ints=True)
+    else:
+        _assert_pq_pool(kv, ki, rv, ri, int8)
+
+
 # every code width 1-9, a full book and a book one short of 2**bits (code
 # 2**bits - 1 selects nothing), S on and off a whole number of 32-code
-# periods; cap 2 (the register path) and 3 (the generic depth)
+# periods; caps on the two-deep bins (1, 2) and on each depth class of the
+# generic widths' deep bins (3 and 8: 8 deep; 9 and 32: 32 deep)
 @pytest.mark.parametrize("bits", range(1, 10))
 @pytest.mark.parametrize("short_book", [False, True])
 @pytest.mark.parametrize("S", [128, 100])
-@pytest.mark.parametrize("cap", [2, 3])
+@pytest.mark.parametrize("cap", [2, 3, 1, 8, 9, 32])
 def test_pq_scan_rabitq_every_width(cuda, bits, short_book, S, cap):
     book = (1 << bits) - short_book
     case = pq_scan_case(bits + 20 * short_book + S, "rabitq", bits, S, 1 << bits, 1, **_PQ_GEOM)
@@ -405,7 +442,7 @@ def test_pq_scan_rabitq_every_width(cuda, bits, short_book, S, cap):
 # 8-bit PQ codes whose count is not a multiple of the 4 threads' word shares
 # (S = 60: 15 words), with tied tables, bf16 and int8
 @pytest.mark.parametrize("int8", [False, True])
-@pytest.mark.parametrize("cap", [1, 2, 4])
+@pytest.mark.parametrize("cap", [1, 2, 4, 3, 7, 8, 9, 16, 17, 32])
 def test_pq_scan_uneven_code_shares_with_ties(cuda, int8, cap):
     rng = np.random.default_rng(cap + 2 * int8)
     case = _tied_tables(pq_scan_case(cap, "pq", 8, 60, 256, 2, **_PQ_FULL), rng, "pq")

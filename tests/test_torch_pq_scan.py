@@ -120,7 +120,7 @@ def _assert_pools(jv, ji, tv, ti, cap, int8):
 
 @pytest.mark.parametrize("ip,use_pen", [(False, False), (True, False), (True, True)])
 @pytest.mark.parametrize("int8", [False, True])
-@pytest.mark.parametrize("cap", [2, 3])
+@pytest.mark.parametrize("cap", [2, 3, 7])
 def test_pq_scan_pool_matches_pallas_pool_pq(ip, use_pen, int8, cap):
     S, book, pq_len = (8, 16, 2) if cap == 2 else (4, 256, 3)
     case = pq_scan_case(10 * cap + 2 * ip + use_pen, "pq", 8, S, book, pq_len, use_pen=use_pen,
@@ -131,12 +131,74 @@ def test_pq_scan_pool_matches_pallas_pool_pq(ip, use_pen, int8, cap):
 
 @pytest.mark.parametrize("bits", [1, 3, 8])
 @pytest.mark.parametrize("ip", [False, True])
-@pytest.mark.parametrize("cap", [2, 3])
+@pytest.mark.parametrize("cap", [2, 3, 7])
 def test_pq_scan_pool_matches_pallas_pool_rabitq(bits, ip, cap):
     S = 11  # dims; at 3 bits code 10 straddles two words
     case = pq_scan_case(bits + 5 * cap + ip, "rabitq", bits, S, 1 << bits, 1, **_GEOM)
     jv, ji, tv, ti = _both_scans(case, "rabitq", bits, 1 << bits, 1, ip, False, False, cap)
     _assert_pools(jv, ji, tv, ti, cap, False)
+
+
+# The deep-bin kernel keeps its bins at a depth class D >= cap and writes
+# the first cap levels. That is the cap-deep pool because the strict-> chain
+# is prefix-stable: level r depends only on the inserted values and levels
+# < r. Held here on the plain versions, with exact ties in every bin.
+_DEPTHS = [(1, 2), (2, 4), (3, 4), (4, 8), (7, 8), (9, 16), (16, 32), (17, 32), (3, 32)]
+
+
+@pytest.mark.parametrize("cap,depth", _DEPTHS)
+def test_bin_chain_cut_to_cap_levels_is_the_cap_deep_chain(cap, depth):
+    rng = np.random.default_rng(cap + 100 * depth)
+    # 40 slices per bin, 6 distinct values: most insertions meet an equal entry
+    v = torch.from_numpy(rng.integers(-3, 3, (2, 3, 40 * 128)).astype(np.float32))
+    v[0, 0, ::7] = float("-inf")  # rows outside the list
+    best, bidx = ops_ivf_scan._bin_insert(v, cap)
+    deep_best, deep_bidx = ops_ivf_scan._bin_insert(v, depth)
+    assert torch.equal(deep_best[..., :cap * 128], best)
+    assert torch.equal(deep_bidx[..., :cap * 128], bidx)
+
+
+# 16-slice windows, so that deep bins fill
+_DEEP_GEOM = dict(al=[0, 512, 1024, 2048], lo=[5, 0, 0, 100], sizes=[2000, 1500, 0, 1900], M=8,
+                  W=2048, n_pad=4096)
+
+
+def _tied_case(seed, mode, bits, S, book, pq_len):
+    """Small-integer codebooks, queries, centers and row factors (every sum
+    exact) with codes repeating every 3 slices per lane bin: exact ties."""
+    rng = np.random.default_rng(seed)
+    case = pq_scan_case(seed, mode, bits, S, book, pq_len, **_DEEP_GEOM)
+    src = np.arange(case["codes_t"].shape[1]) % 384
+    case["codes_t"] = np.ascontiguousarray(case["codes_t"][:, src])
+    if mode == "pq":
+        case["codebook"] = rng.integers(-2, 3, case["codebook"].shape).astype(np.float32)
+    for key in ("queries", "centers_tile"):
+        case[key] = rng.integers(-3, 4, case[key].shape).astype(np.float32)
+    case["norms"] = rng.integers(0, 16, src.size).astype(np.float32)[src]
+    case["fr"] = rng.integers(-2, 3, src.size).astype(np.float32)[src]
+    return case
+
+
+@pytest.mark.parametrize("mode,bits,S,book,pq_len,int8", [("pq", 8, 8, 16, 2, False),
+                                                          ("pq", 8, 8, 16, 2, True),
+                                                          ("rabitq", 3, 11, 8, 1, False)])
+@pytest.mark.parametrize("cap,depth", [(1, 2), (3, 4), (7, 8), (9, 16), (16, 32)])
+def test_pq_scan_pool_cut_to_cap_levels_is_the_cap_deep_pool(mode, bits, S, book, pq_len, int8,
+                                                             cap, depth):
+    case = _tied_case(cap + depth + 3 * int8, mode, bits, S, book, pq_len)
+    args = (torch.from_numpy(case["codes_t"].view(np.int32)), torch.from_numpy(case["norms"]),
+            torch.from_numpy(case["queries"]).bfloat16(),
+            ivf_scan.block_diag_codebook(torch.from_numpy(case["codebook"]), 128),
+            torch.from_numpy(case["centers_tile"]).bfloat16(),
+            *(torch.from_numpy(case[k]) for k in ("qidx", "al", "lo", "sizes")))
+    kw = dict(W=_DEEP_GEOM["W"], m_tile=_DEEP_GEOM["M"], ip=False, book=book, bits=bits, mode=mode,
+              sorted_fr=torch.from_numpy(case["fr"]) if mode == "rabitq" else None,
+              int8_mode=int8, pq_len=pq_len)
+    v, i = ops_ivf_scan.fused_pq_scan_reference(*args, cap=cap, **kw)
+    dv, di = ops_ivf_scan.fused_pq_scan_reference(*args, cap=depth, **kw)
+    assert torch.isfinite(v[:, :, (cap - 1) * 128:]).any()  # the last level holds rows
+    assert torch.equal(dv[..., :cap * 128], v)
+    assert torch.equal(di[..., :cap * 128], i)
 
 
 def test_pq_scan_rejects_bad_operands():
