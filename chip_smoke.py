@@ -16,7 +16,13 @@ same shape): 1,000,000 x 128 f32, 4096 queries, k = 10.
   4. int8 fused brute force, alone and with 40 candidates + exact refine;
   5. IVF-Flat (1984 lists, bf16 storage) built by balanced k-means and
      searched with 64 probes through the fused scan kernel, with and
-     without refine;
+     without refine; then the scan's deep bins (k = 100, cap 4), each search
+     recorded as a variant of its own and its first 10 ids' recall at most
+     0.005 below a k = 10 search of the same index and parameters: the
+     bf16 index with bf16 queries (tensor cores, ``bfloat16-k100``), with
+     f32 queries (the fp32 tile, ``bfloat16-f32q-k100``), and an f32-row
+     index as the bench CLI builds it (1024 lists, p100, ``float32-k100``),
+     each with the registers and local bytes of the kernel it ran;
   6. IVF-PQ (1024 lists, pq_dim 64, 8 bits, per-subspace codebooks: the
      ``base`` group of cuvs_tpu/bench/configs/ivf_pq.yaml) searched with 50
      probes through the fused quantized-code scan kernel, bf16 table alone
@@ -263,7 +269,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 N, NQ, K, CAND = 1_000_000, 4096, 10, 40
 N_LISTS, N_PROBES = 1984, 64  # bench.py's n_lists rule at 1M rows
 Q_LISTS, Q_PROBES = 1024, 50  # IVF-PQ, IVF-RaBitQ, IVF-SQ (bench/configs/*.yaml base)
-DEEP_K = 100  # phase 6's deep-bin search: the other k of ann-benchmarks and cuvs-bench
+DEEP_K = 100  # phases 5-6's deep-bin searches: the other k of ann-benchmarks and cuvs-bench
+CLI_LISTS, CLI_PROBES = 1024, 100  # the bench CLI's f32 IVF-Flat (configs/ivf_flat.yaml)
 N_FIRST, SLICE = 900_000, 100_000  # extend phases: build on the first rows; streaming slices
 SUB = 100_000  # the rows of the long tail's phases that are quadratic in n or host-bound
 # the rows of CAGRA's merged halves (phase 24), the ACE build (25), the iterative build (26),
@@ -1262,6 +1269,45 @@ def main() -> int:
                   f"({time.time() - t0:.1f} s)")
             return index
 
+        # k = 100: the IVF-Flat scan's deep bins, on each tile
+        cli_flat = build_ivf("ivf_flat f32 (the CLI's)", lambda: ivf_flat.build(
+            x, n_lists=CLI_LISTS, metric=ds.metric, seed=0))
+        f32q = ivf_flat.SearchParams(n_probes=N_PROBES, scan_algo="fused")
+        # (label, tag of the k = 10 search, tag of the k = 100 one, its variant, search(k))
+        deep_flat = [
+            (f"ivf_fused_p{N_PROBES}", None, f"-k{DEEP_K}", "bfloat16",
+             lambda k: ivf_flat.search(idx, q, k, sp)),
+            (f"ivf_fused_f32q_p{N_PROBES}", "-f32q", f"-f32q-k{DEEP_K}", "bfloat16",
+             lambda k: ivf_flat.search(idx, q, k, f32q)),
+            (f"ivf_fused_f32_p{CLI_PROBES}", f"-p{CLI_PROBES}", f"-k{DEEP_K}", "float32",
+             lambda k: ivf_flat.search(cli_flat, q, k, n_probes=CLI_PROBES)),
+        ]
+        for label, tag10, tag100, rows, search in deep_flat:
+            t0 = time.time()
+            if tag10 is None:
+                rec10 = results[label]["recall"]
+            else:
+                with tagged(tag10):
+                    rec10 = id_recall(search(K)[1].cpu(), gti)
+            with tagged(tag100):
+                d100, i100 = search(DEEP_K)
+            torch.cuda.synchronize()
+            check(d100.shape == (q.shape[0], DEEP_K) and bool(torch.isfinite(d100).all()),
+                  f"{label} k={DEEP_K}: shape or non-finite distances")
+            rec100 = id_recall(i100[:, :K].cpu(), gti)
+            var = rows + tag100
+            attrs = scan_compare.scan_kernel_attributes(*calls[("ivf_scan", var)])
+            print(f"# {label} k={DEEP_K} (cap {-(-DEEP_K // 32)}, variant {var}): recall@10 of "
+                  f"its first {K} ids {rec100:.4f} (k={K}: {rec10:.4f}); kernel: depth class "
+                  f"{attrs['depth']}, {attrs['slots']} slots x {attrs['parts']} part(s) a block, "
+                  f"{attrs['registers']} registers, {attrs['local_bytes']} local bytes "
+                  f"({time.time() - t0:.1f} s)")
+            check(rec100 >= rec10 - RECALL_SLACK,
+                  f"{label} k={DEEP_K}: first {K} ids' recall below k={K}'s")
+            check(attrs["local_bytes"] == 0, f"{label} k={DEEP_K}: the kernel's bins spill")
+            del d100, i100
+        del cli_flat
+
         # 6. IVF-PQ, fused quantized-code scan (bf16 and int8 tables)
         pq = build_ivf("ivf_pq", lambda: ivf_pq.build(x, n_lists=Q_LISTS, pq_dim=64, pq_bits=8,
                                                       metric=ds.metric, seed=0))
@@ -2168,8 +2214,8 @@ def main() -> int:
             v["share"] = v["bound_ms"] / ms
             if mod is bf_topk:
                 v["product_ms"] = roofline.product_ms(args[0], args[1])
-            if name == "pq_scan":  # cap > 2: the deep bins' source
-                v["source"] = source.replace(".cu", "_deep.cu") if kw.get("cap", 2) > 2 else source
+            if kw.get("cap", 2) > 2:  # the deep bins' source
+                v["source"] = source.replace(".cu", "_deep.cu")
             shape = "x".join(str(s) for s in out[0].shape)
             print(f"# {name} [{var}], {v['launches']} launches: pool {shape} matches plain "
                   f"(max abs err {err:.3g}, "

@@ -70,7 +70,8 @@ def build_earlier(csrc: Path, sources=("bf_topk.cu",),
 
 
 def ptxas_report(source: str = "bf_topk.cu") -> dict:
-    """{kernel: {"registers": n, "spill_stores": bytes}} of one csrc source."""
+    """{kernel: {"registers": n, "stack": bytes, "spill_stores": bytes}} of one
+    csrc source."""
     with tempfile.TemporaryDirectory() as tmp:
         log = subprocess.run([_lib._nvcc(), *_lib.NVCC_FLAGS, "-Xptxas", "-v", "-I", str(_lib.CSRC),
                               "-c", "-o", os.path.join(tmp, "k.o"), str(_lib.CSRC / source)],
@@ -87,8 +88,10 @@ def ptxas_report(source: str = "bf_topk.cu") -> dict:
                 name = name.removeprefix("void ")
                 name = name.split(">(")[0] + ">" if ">(" in name else name.split("(")[0]
             out[name] = {}
-        elif name and (m := re.search(r"(\d+) bytes spill stores", line)):
-            out[name]["spill_stores"] = int(m.group(1))
+        elif name and (m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores",
+                                      line)):
+            out[name]["stack"] = int(m.group(1))
+            out[name]["spill_stores"] = int(m.group(2))
         elif name and (m := re.search(r"Used (\d+) registers", line)):
             out[name]["registers"] = int(m.group(1))
     return out

@@ -1,41 +1,49 @@
 """Time the IVF scan kernels against an earlier build of them, on one card.
 
     python -m cuvs_tpu_torch.bench.scan_compare [--parent-csrc DIR] [--reps 3] [--ptxas]
+        [--searches SUBSTR,...]
 
-At chip_smoke.py's shapes (sift-128-euclidean, 1,000,000 x 128, 4096
-queries, k = 10; IVF-Flat with 1984 lists in bf16 and 64 probes; IVF-PQ with
-1024 lists, pq_dim 64, 8 bits and 50 probes; IVF-RaBitQ with 1024 lists,
-3 bits and 50 probes), plus IVF-Flat as the bench CLI builds it (1024 lists,
-default storage: f32 rows) searched at 10 and 100 probes, and the bf16 index
-searched with f32 queries, it builds the indexes, records the scan wrappers'
-calls of one search each, and times per variant (ivf_scan bfloat16,
-bf16rows-f32q, f32-p10, f32-p100; pq_scan pq-bf16, pq-int8lut, rabitq-3bit) this
-tree's kernel, the kernel built from the sources in DIR (an earlier
-``cuvs_tpu_torch/csrc``, same C interface) and the plain PyTorch version, in
-turns: plain, new, earlier, earlier, new, plain. The deep bins (cap =
-ceil(k / 32) > 2) have variants of their own: the same IVF-Flat (f32 at 100
-probes, bf16), IVF-PQ (bf16 and int8 tables) and IVF-RaBitQ searches at
-k = 100 (``-k100``: cap 4), and the search of CAGRA's IVF-PQ graph build
-(1000 lists, the default IVF-PQ parameters, 50 probes, the first 4096 base
-rows as queries) at k = 194 (``-k194``: cap 7, the 96 -> 64 build of
-chip_smoke.py) and 258 (``-k258``: cap 9, cuVS's default 128 -> 64).
-Each time is the CUDA-event mean of ``reps`` calls after a warm-up. Beside them: the bound (``roofline.py``), the kernel's share of
-it, how far its pool is from the plain version's, and for the quantized scan
-the shared-memory ceiling of its table lookups (``smem_ms``: every lookup's
-table bytes, S per valid (slot, row) pair, read once at 128 bytes per clock
-per SM at the card's maximum SM clock, with no bank conflict). ``--ptxas`` adds each
-kernel's registers and spills. Then the per-batch split of each search into
-coarse search, pair grouping and windows (with the quantized searches'
-rotated operands, codebook and per-probe cluster terms), the kernel, and the
-pool merge, each the sum of CUDA-event times of its calls inside one search,
-meaned over ``reps`` searches, beside the search's own time. Prints one JSON
-object and writes it to ``--out``.
+At chip_smoke.py's shapes (sift-128-euclidean, 1,000,000 x 128, 4096 queries, k
+= 10; IVF-Flat with 1984 lists in bf16 and 64 probes; IVF-PQ with 1024 lists,
+pq_dim 64, 8 bits and 50 probes; IVF-RaBitQ with 1024 lists, 3 bits and 50
+probes), plus IVF-Flat as the bench CLI builds it (1024 lists, default storage:
+f32 rows) searched at 10 and 100 probes, and the bf16 index searched with f32
+queries, it builds the indexes, records the scan wrappers' calls of one search
+each, and times per variant (ivf_scan bfloat16, bf16rows-f32q, f32-p10,
+f32-p100; pq_scan pq-bf16, pq-int8lut, rabitq-3bit) this tree's kernel, the
+kernel built from the sources in DIR (an earlier ``cuvs_tpu_torch/csrc``, same
+C interface) and the plain PyTorch version, in turns: plain, new, earlier,
+earlier, new, plain. The deep bins (cap = ceil(k / 32) > 2) have variants of
+their own: the same IVF-Flat (f32 at 100 probes, bf16, bf16 rows with f32
+queries), IVF-PQ (bf16 and int8 tables) and IVF-RaBitQ searches at k = 100
+(``-k100``: cap 4), the IVF-Flat f32 and bf16 ones at k = 258 (``-k258``: cap
+9, depth classes 16 and 8), and the search of CAGRA's IVF-PQ graph build (1000
+lists, the default IVF-PQ parameters, 50 probes, the first 4096 base rows as
+queries) at k = 194 (``-k194``: cap 7, the 96 -> 64 build of chip_smoke.py) and
+258 (``-k258``: cap 9, cuVS's default 128 -> 64). Each time is the CUDA-event
+mean of ``reps`` calls after a warm-up. Beside them: the bound
+(``roofline.py``), the kernel's share of it, how far its pool is from the plain
+version's, and for the quantized scan the shared-memory ceiling of its table
+lookups (``smem_ms``: every lookup's table bytes, S per valid (slot, row) pair,
+read once at 128 bytes per clock per SM at the card's maximum SM clock, with no
+bank conflict), whether the pool is bit-identical to DIR's build's
+(``same_as_earlier``), and for ``ivf_scan`` the kernel the call ran
+(``kernel``: registers, local bytes, depth class, slots a block, column parts).
+``--ptxas`` adds every kernel's registers, stack and spills. ``--searches``
+keeps the searches whose names hold one of the substrings, and builds only
+their indexes. Then the per-batch split of each search into coarse search, pair
+grouping and windows (with the quantized searches' rotated operands, codebook
+and per-probe cluster terms), the kernel, and the pool merge, each the sum of
+CUDA-event times of its calls inside one search, meaned over ``reps`` searches,
+beside the search's own time. Prints one JSON object and writes it to
+``--out``.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import ctypes
 import json
 import os
 import subprocess
@@ -57,6 +65,9 @@ N_LISTS, N_PROBES = 1984, 64  # chip_smoke.py's IVF-Flat
 CLI_LISTS, CLI_PROBES = 1024, (10, 100)  # the bench CLI's f32 IVF-Flat (configs/ivf_flat.yaml)
 Q_LISTS, Q_PROBES = 1024, 50  # chip_smoke.py's IVF-PQ and IVF-RaBitQ
 DEEP_K = 100  # the k of the deep-bin variants of those searches (cap 4)
+# a deeper IVF-Flat k (cap 9): depth class 16 over the CLI index's 9-slice
+# window, 8 over the bf16 index's 5 (a bin takes one score a slice)
+FLAT_WIDE_K = 258
 # CAGRA's IVF-PQ graph build at 1M rows (knn_graph.build_knn_graph): sqrt(n)
 # lists, 50 probes, (k + 1) * 2 candidates for 96 and 128 neighbours
 CAGRA_LISTS, CAGRA_PROBES, CAGRA_KS = 1000, 50, (194, 258)
@@ -73,42 +84,74 @@ PHASES = {
 }
 
 
-def indexes(x: torch.Tensor, metric) -> dict:
-    """{search name: search(q)} over chip_smoke.py's three IVF indexes."""
-    flat = ivf_flat.build(x, n_lists=N_LISTS, metric=metric, seed=0,
-                          storage_dtype=torch.bfloat16)
+def indexes(x: torch.Tensor, metric, only=None) -> dict:
+    """{search name: search(q)} over chip_smoke.py's three IVF indexes, the
+    CLI's f32 IVF-Flat and CAGRA's IVF-PQ build index. ``only``: substrings
+    of the names to keep (None: every search); only their indexes are built."""
+    builders = {
+        "flat": lambda: ivf_flat.build(x, n_lists=N_LISTS, metric=metric, seed=0,
+                                       storage_dtype=torch.bfloat16),
+        "cli": lambda: ivf_flat.build(x, n_lists=CLI_LISTS, metric=metric, seed=0),
+        "pq": lambda: ivf_pq.build(x, n_lists=Q_LISTS, pq_dim=64, pq_bits=8, metric=metric,
+                                   seed=0),
+        "rq": lambda: ivf_rabitq.build(x, n_lists=Q_LISTS, bits_per_dim=3, metric=metric,
+                                       seed=0),
+        "cg": lambda: ivf_pq.build(x, ivf_pq.IndexParams(
+            n_lists=CAGRA_LISTS, metric=metric, seed=0,
+            kmeans_trainset_fraction=100_000 / x.shape[0])),
+    }
     flat_sp = ivf_flat.SearchParams(n_probes=N_PROBES, scan_algo="fused",
                                     compute_dtype=torch.bfloat16, recall_target=0.97)
     flat_f32q = ivf_flat.SearchParams(n_probes=N_PROBES, scan_algo="fused")
-    cli = ivf_flat.build(x, n_lists=CLI_LISTS, metric=metric, seed=0)
-    pq = ivf_pq.build(x, n_lists=Q_LISTS, pq_dim=64, pq_bits=8, metric=metric, seed=0)
     pq_sp = {lut: ivf_pq.SearchParams(n_probes=Q_PROBES, scan_algo="fused", lut_dtype=lut)
              for lut in (torch.bfloat16, torch.int8)}
-    rq = ivf_rabitq.build(x, n_lists=Q_LISTS, bits_per_dim=3, metric=metric, seed=0)
     rq_sp = ivf_rabitq.SearchParams(n_probes=Q_PROBES, scan_algo="fused")
-    cg = ivf_pq.build(x, ivf_pq.IndexParams(n_lists=CAGRA_LISTS, metric=metric, seed=0,
-                                            kmeans_trainset_fraction=100_000 / x.shape[0]))
     base_q = x[:NQ]  # the graph build's first batch: base rows as queries
-    searches = {
-        "ivf_flat_bfloat16": lambda q: ivf_flat.search(flat, q, K, flat_sp),
-        "ivf_flat_bf16rows-f32q": lambda q: ivf_flat.search(flat, q, K, flat_f32q),
-        **{f"ivf_flat_f32-p{p}": (lambda q, p=p: ivf_flat.search(cli, q, K, n_probes=p))
+    # name -> (index, search(index, q))
+    table = {
+        "ivf_flat_bfloat16": ("flat", lambda ix, q: ivf_flat.search(ix, q, K, flat_sp)),
+        "ivf_flat_bf16rows-f32q": ("flat", lambda ix, q: ivf_flat.search(ix, q, K, flat_f32q)),
+        **{f"ivf_flat_f32-p{p}": ("cli", lambda ix, q, p=p: ivf_flat.search(ix, q, K, n_probes=p))
            for p in CLI_PROBES},
-        "ivf_pq": lambda q: ivf_pq.search(pq, q, K, pq_sp[torch.bfloat16]),
-        "ivf_pq_int8lut": lambda q: ivf_pq.search(pq, q, K, pq_sp[torch.int8]),
-        "ivf_rabitq": lambda q: ivf_rabitq.search(rq, q, K, rq_sp),
+        "ivf_pq": ("pq", lambda ix, q: ivf_pq.search(ix, q, K, pq_sp[torch.bfloat16])),
+        "ivf_pq_int8lut": ("pq", lambda ix, q: ivf_pq.search(ix, q, K, pq_sp[torch.int8])),
+        "ivf_rabitq": ("rq", lambda ix, q: ivf_rabitq.search(ix, q, K, rq_sp)),
         # the deep bins: the same searches at k = 100, and the graph build's
-        f"ivf_flat_f32-k{DEEP_K}": lambda q: ivf_flat.search(cli, q, DEEP_K,
-                                                             n_probes=CLI_PROBES[-1]),
-        f"ivf_flat_bfloat16-k{DEEP_K}": lambda q: ivf_flat.search(flat, q, DEEP_K, flat_sp),
-        f"ivf_pq-k{DEEP_K}": lambda q: ivf_pq.search(pq, q, DEEP_K, pq_sp[torch.bfloat16]),
-        f"ivf_pq_int8lut-k{DEEP_K}": lambda q: ivf_pq.search(pq, q, DEEP_K, pq_sp[torch.int8]),
-        f"ivf_rabitq-k{DEEP_K}": lambda q: ivf_rabitq.search(rq, q, DEEP_K, rq_sp),
+        f"ivf_flat_f32-k{DEEP_K}": ("cli", lambda ix, q: ivf_flat.search(
+            ix, q, DEEP_K, n_probes=CLI_PROBES[-1])),
+        f"ivf_flat_bfloat16-k{DEEP_K}": ("flat", lambda ix, q: ivf_flat.search(
+            ix, q, DEEP_K, flat_sp)),
+        f"ivf_flat_bf16rows-f32q-k{DEEP_K}": ("flat", lambda ix, q: ivf_flat.search(
+            ix, q, DEEP_K, flat_f32q)),
+        f"ivf_flat_f32-k{FLAT_WIDE_K}": ("cli", lambda ix, q: ivf_flat.search(
+            ix, q, FLAT_WIDE_K, n_probes=CLI_PROBES[-1])),
+        f"ivf_flat_bfloat16-k{FLAT_WIDE_K}": ("flat", lambda ix, q: ivf_flat.search(
+            ix, q, FLAT_WIDE_K, flat_sp)),
+        f"ivf_pq-k{DEEP_K}": ("pq", lambda ix, q: ivf_pq.search(ix, q, DEEP_K,
+                                                                pq_sp[torch.bfloat16])),
+        f"ivf_pq_int8lut-k{DEEP_K}": ("pq", lambda ix, q: ivf_pq.search(ix, q, DEEP_K,
+                                                                        pq_sp[torch.int8])),
+        f"ivf_rabitq-k{DEEP_K}": ("rq", lambda ix, q: ivf_rabitq.search(ix, q, DEEP_K, rq_sp)),
+        **{f"cagra_ivf_pq-k{k}": ("cg", lambda ix, q, k=k: ivf_pq.search(
+            ix, base_q, k, n_probes=CAGRA_PROBES)) for k in CAGRA_KS},
     }
-    for k in CAGRA_KS:
-        searches[f"cagra_ivf_pq-k{k}"] = (
-            lambda q, k=k: ivf_pq.search(cg, base_q, k, n_probes=CAGRA_PROBES))
-    return searches
+    keep = {name: v for name, v in table.items()
+            if only is None or any(o in name for o in only)}
+    built = {key: builders[key]() for key in dict.fromkeys(key for key, _ in keep.values())}
+    return {name: (lambda q, ix=built[key], fn=fn: fn(ix, q)) for name, (key, fn) in keep.items()}
+
+
+def scan_kernel_attributes(args, kw) -> dict:
+    """The ivf_scan kernel that a recorded fused_ivf_scan call runs, without
+    running it: registers, local (stack) bytes a thread, depth class, slots
+    a block, column parts, threads a block."""
+    data, queries, qidx, W, cap = args[0], args[2], args[3], kw["W"], kw.get("cap", 2)
+    qdt = queries.dtype if data.dtype != torch.float32 else torch.float32  # as the wrapper widens
+    out = (ctypes.c_int * 6)()
+    _lib.check(_lib.lib().cuvs_ivf_scan_attributes(
+        _lib.DTYPE_CODE[data.dtype], _lib.DTYPE_CODE[qdt], qidx.shape[1], data.shape[1], W, cap,
+        out), "cuvs_ivf_scan_attributes")
+    return dict(zip(("registers", "local_bytes", "depth", "slots", "parts", "threads"), out))
 
 
 @contextlib.contextmanager
@@ -216,6 +259,8 @@ def main(argv=None) -> int:
                     help="an earlier cuvs_tpu_torch/csrc to time against")
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--ptxas", action="store_true", help="report registers and spills")
+    ap.add_argument("--searches", default=None,
+                    help="comma-separated substrings of the searches to run (default: all)")
     ap.add_argument("--out", type=Path, default=Path("chiprun_out/scan_compare.json"))
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -226,7 +271,8 @@ def main(argv=None) -> int:
     print(card)
     t0 = time.time()
     _lib.lib()
-    scan_sources = ("ivf_scan.cu", "ivf_scan_fma.cu", "pq_scan.cu", "pq_scan_deep.cu")
+    scan_sources = ("ivf_scan.cu", "ivf_scan_fma.cu", "ivf_scan_deep.cu", "ivf_scan_deep32.cu",
+                    "pq_scan.cu", "pq_scan_deep.cu")
     earlier = (build_earlier(args.parent_csrc,
                              [s for s in scan_sources if (args.parent_csrc / s).exists()],
                              ("cuvs_ivf_scan", "cuvs_pq_scan")) if args.parent_csrc else None)
@@ -241,7 +287,7 @@ def main(argv=None) -> int:
     x = torch.from_numpy(ds.base).float().to(dev)  # as chip_smoke.py indexes it
     q = torch.from_numpy(ds.queries[:NQ].astype("float32")).to(dev)
     t0 = time.time()
-    searches = indexes(x, ds.metric)
+    searches = indexes(x, ds.metric, args.searches.split(",") if args.searches else None)
     print(f"# index builds: {time.time() - t0:.1f} s")
     calls = record_calls(searches, q)
     for var, (name, wrapper, plain, call, kw) in sorted(calls.items()):
@@ -262,9 +308,15 @@ def main(argv=None) -> int:
                 continue
             times[who].append(timed(fns[who], args.reps))
         out, ref = new_fn(), plain_fn()
+        prev = earlier_fn() if earlier is not None else None
         torch.cuda.synchronize()
         fin = torch.isfinite(ref[0])
         row = {f"{who}_ms": t for who, t in times.items() if t}
+        if prev is not None:  # the same pool, bit for bit, as the earlier build's
+            row["same_as_earlier"] = bool(torch.equal(out[0], prev[0]) and
+                                          torch.equal(out[1], prev[1]))
+        if name == "ivf_scan":
+            row["kernel"] = scan_kernel_attributes(call, kw)
         row.update(roofline.kernel_bound(name, call, kw, out))
         row["share"] = row["bound_ms"] / (sum(times["new"]) / len(times["new"]))
         row["max_abs_err"] = float((out[0][fin] - ref[0][fin]).abs().max())

@@ -134,22 +134,24 @@ struct FmaTile {
   }
 
   // The same over kBK values of query rows q_stride floats apart from q0
-  // and 128 dataset rows kXStride apart from xs.
+  // and dataset rows kXStride apart from xs: columns col_of(j) for j < kN
+  // (kN < kTN: the caller offsets xs to its first column group).
+  template <int kN>
   static __device__ __forceinline__ void compute(const float* q0, int q_stride, const TX* xs,
-                                                 float (&acc)[kTM][kTN]) {
+                                                 float (&acc)[kTM][kN]) {
     const float* qs = q0 + (threadIdx.x / 16) * q_stride;
     xs += (threadIdx.x % 16) * kXStride;
 #pragma unroll 2
     for (int kk = 0; kk < kBK; kk += 4) {
-      float4 a[kTM], b[kTN];
+      float4 a[kTM], b[kN];
 #pragma unroll
       for (int i = 0; i < kTM; ++i) a[i] = load4(qs + 16 * i * q_stride + kk);
 #pragma unroll
-      for (int j = 0; j < kTN; ++j) b[j] = load4(xs + 16 * j * kXStride + kk);
+      for (int j = 0; j < kN; ++j) b[j] = load4(xs + 16 * j * kXStride + kk);
 #pragma unroll
       for (int i = 0; i < kTM; ++i)
 #pragma unroll
-        for (int j = 0; j < kTN; ++j) {
+        for (int j = 0; j < kN; ++j) {
           acc[i][j] = fmaf(a[i].x, b[j].x, acc[i][j]);
           acc[i][j] = fmaf(a[i].y, b[j].y, acc[i][j]);
           acc[i][j] = fmaf(a[i].z, b[j].z, acc[i][j]);

@@ -10,10 +10,13 @@
 // bf16, 1979 TOP/s int8) and, once they run on tensor cores, the bytes of the
 // dataset that each block pulls through L2. The design:
 //
-//  * A block owns kBQ = 32 * kWM query rows and walks the 128-row slices of
-//    one dataset tile; 4 * kWM warps, each a 32-query x 32-column warp tile
-//    (2 x 4 MMA tiles), so the running state of the epilogue stays in the
-//    same registers as the accumulators for the whole tile.
+//  * A block owns kBQ = 16 * kMI * kWM query rows and walks the 128-row
+//    slices of one dataset tile; 4 * kWM warps, each a (16 * kMI)-query x
+//    32-column warp tile (kMI x 4 MMA tiles; the brute force's kMI = 2), so
+//    the running state of the epilogue stays in the same registers as the
+//    accumulators for the whole tile. A caller may multiply only some of
+//    each warp's four 8-column MMA tiles (compute's kN, ni0): the IVF-Flat
+//    scan's deep bins keep fewer columns a block.
 //  * The block's queries stay resident in shared memory (kBQ x d, zero-padded
 //    to 128-byte chunks, so any d works); the dataset streams through a ring
 //    of [128 rows x 128 bytes] chunks by cp.async, in its own type (no
@@ -120,6 +123,11 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t addr, uint32_t& r0, uint32_
                : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
                : "r"(addr));
 }
+__device__ __forceinline__ void ldmatrix_x2(uint32_t addr, uint32_t& r0, uint32_t& r1) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r0), "=r"(r1)
+               : "r"(addr));
+}
 
 // D += A * B on one 16 x 8 tile over 32 bytes of k (16 bf16 or 32 int8).
 __device__ __forceinline__ void mma_k32b(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
@@ -140,12 +148,12 @@ __device__ __forceinline__ void mma_k32b(int (&c)[4], const uint32_t (&a)[4], ui
 // Byte offset of 16-byte unit u of row r in a [rows x 128 B] swizzled tile.
 __device__ __forceinline__ int swz(int r, int u) { return r * kChunkBytes + ((u ^ (r & 7)) << 4); }
 
-template <typename T, int kWM>
+template <typename T, int kWM, int kMI = 2>
 struct MmaTile {
   static_assert(std::is_same<T, __nv_bfloat16>::value || std::is_same<T, int8_t>::value,
                 "tensor-core tile takes bf16 or int8 rows");
   using Acc = typename std::conditional<std::is_same<T, int8_t>::value, int, float>::type;
-  static constexpr int kBQ = 32 * kWM;
+  static constexpr int kBQ = 16 * kMI * kWM;
   static constexpr int kWarps = 4 * kWM;
   static constexpr int kThreads = 32 * kWarps;
   static constexpr int kStages = 4;  // groups of kGroup chunks
@@ -164,7 +172,7 @@ struct MmaTile {
   // Accumulator element e of MMA tile (mi, ni) of this thread: its query row
   // and column within the block's [kBQ x 128] slice.
   static __device__ __forceinline__ int row_of(int mi, int e) {
-    return (threadIdx.x / 32 / 4) * 32 + mi * 16 + (threadIdx.x % 32) / 4 + 8 * (e >> 1);
+    return (threadIdx.x / 32 / 4) * 16 * kMI + mi * 16 + (threadIdx.x % 32) / 4 + 8 * (e >> 1);
   }
   static __device__ __forceinline__ int col_of(int ni, int e) {
     return (threadIdx.x / 32 % 4) * 32 + ni * 8 + 2 * (threadIdx.x % 4) + (e & 1);
@@ -209,31 +217,40 @@ struct MmaTile {
                  kc * kChunkElems + u * (16 / static_cast<int>(sizeof(T))), d, vec);
   }
 
-  // acc[mi][ni] += this warp's 32 x 32 products over one 128-byte chunk.
+  // acc[mi][n] += this warp's products over one 128-byte chunk, for its MMA
+  // tiles of columns ni0 + n (kN = 4, ni0 = 0: all 32 columns; kN = 2: ni0
+  // even). Each element's sum is the same at any kN.
+  template <int kN>
   static __device__ __forceinline__ void compute(const char* qtile, const char* xtile,
-                                                 Acc (&acc)[2][4][4]) {
+                                                 Acc (&acc)[kMI][kN][4], int ni0 = 0) {
+    static_assert(kN == 1 || kN == 2 || kN == 4, "MMA tiles per warp");
     const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
     const int wm = warp / 4, wn = warp % 4;
     const uint32_t qa = smem_addr(qtile), xa = smem_addr(xtile);
 #pragma unroll
     for (int ks = 0; ks < 4; ++ks) {
-      uint32_t a[2][4], b[4][2];
+      uint32_t a[kMI][4], b[kN][2];
 #pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        const int r = wm * 32 + mi * 16 + (lane & 15);
+      for (int mi = 0; mi < kMI; ++mi) {
+        const int r = wm * 16 * kMI + mi * 16 + (lane & 15);
         ldmatrix_x4(qa + swz(r, ks * 2 + (lane >> 4)), a[mi][0], a[mi][1], a[mi][2], a[mi][3]);
       }
+      if constexpr (kN == 1) {
+        const int r = wn * 32 + ni0 * 8 + (lane & 7);
+        ldmatrix_x2(xa + swz(r, ks * 2 + ((lane >> 3) & 1)), b[0][0], b[0][1]);
+      } else {
 #pragma unroll
-      for (int nj = 0; nj < 2; ++nj) {
-        const int m = lane >> 3;
-        const int r = wn * 32 + nj * 16 + (m >> 1) * 8 + (lane & 7);
-        ldmatrix_x4(xa + swz(r, ks * 2 + (m & 1)), b[2 * nj][0], b[2 * nj][1], b[2 * nj + 1][0],
-                    b[2 * nj + 1][1]);
+        for (int nj = 0; nj < kN / 2; ++nj) {
+          const int m = lane >> 3;
+          const int r = wn * 32 + ni0 * 8 + nj * 16 + (m >> 1) * 8 + (lane & 7);
+          ldmatrix_x4(xa + swz(r, ks * 2 + (m & 1)), b[2 * nj][0], b[2 * nj][1],
+                      b[2 * nj + 1][0], b[2 * nj + 1][1]);
+        }
       }
 #pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
+      for (int mi = 0; mi < kMI; ++mi)
 #pragma unroll
-        for (int ni = 0; ni < 4; ++ni) mma_k32b(acc[mi][ni], a[mi], b[ni][0], b[ni][1]);
+        for (int n = 0; n < kN; ++n) mma_k32b(acc[mi][n], a[mi], b[n][0], b[n][1]);
     }
   }
 };

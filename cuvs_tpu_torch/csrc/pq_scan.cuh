@@ -91,6 +91,7 @@
 //    computes it per tile with the same sums, without storing a table.
 #pragma once
 
+#include "bins.cuh"
 #include "mma_tile.cuh"
 
 #include <cuda_bf16.h>
@@ -370,50 +371,6 @@ __device__ __forceinline__ void add_entry(const int8_t* lut, int e, int (&acc)[k
       for (int b = 0; b < 4; ++b) acc[4 * i + b] += static_cast<int8_t>(w[i] >> (8 * b));
   }
 }
-
-// ---------------------------------------------------------------------------
-// Bins
-// ---------------------------------------------------------------------------
-
-// One lane bin's kDepth levels: scores, and their slice ids packed four to a
-// word (byte r % 4 of word r / 4). Every index is a compile-time constant
-// once the loops are unrolled, so the bins stay in registers.
-template <int kDepth>
-struct Bins {
-  static constexpr int kWords = (kDepth + 3) / 4;
-  float v[kDepth];
-  uint32_t id[kWords];
-
-  __device__ __forceinline__ void clear() {
-#pragma unroll
-    for (int r = 0; r < kDepth; ++r) v[r] = -INFINITY;
-#pragma unroll
-    for (int w = 0; w < kWords; ++w) id[w] = 0;
-  }
-
-  // The chain: strict >, the displaced entry moves one level down, the last
-  // level drops it.
-  __device__ __forceinline__ void insert(float x, uint32_t xi) {
-    if (!(x > v[kDepth - 1])) return;  // below the whole bin: no change
-#pragma unroll
-    for (int r = 0; r < kDepth; ++r) {
-      if (x > v[r]) {
-        constexpr uint32_t kByte = 0xffu;
-        const int sh = 8 * (r % 4);
-        const float ob = v[r];
-        const uint32_t oi = (id[r / 4] >> sh) & kByte;
-        v[r] = x;
-        id[r / 4] = (id[r / 4] & ~(kByte << sh)) | (xi << sh);
-        x = ob;
-        xi = oi;
-      }
-    }
-  }
-
-  __device__ __forceinline__ uint32_t slice(int r) const {
-    return (id[r / 4] >> (8 * (r % 4))) & 0xffu;
-  }
-};
 
 // ---------------------------------------------------------------------------
 // Scan

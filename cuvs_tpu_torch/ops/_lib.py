@@ -39,6 +39,7 @@ _SIGNATURES = {
     "cuvs_bf_topk_approx": [_I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     "cuvs_ivf_scan": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P,
                       _P, _P],
+    "cuvs_ivf_scan_attributes": [_I, _I, _I, _I, _I, _I, _P],
     "cuvs_pq_scan": [_P, _I, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                      _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
 }

@@ -4,10 +4,11 @@ Two hand-written CUDA kernels score each pair tile of ``group_pairs_tiled``
 (M query slots probing one list) against its list's window and keep the best
 ``cap`` rows per strided lane bin, so no [tiles, M, W] score tensor reaches
 device memory: ``fused_ivf_scan`` (``csrc/ivf_scan.cu``; f32 rows in
-``csrc/ivf_scan_fma.cu``) over raw rows (IVF-Flat), ``fused_pq_scan``
-(``csrc/pq_scan.cu``; bins deeper than 2 in ``csrc/pq_scan_deep.cu``) over
-packed quantized codes through a per-slot lookup table (IVF-PQ and
-IVF-RaBitQ). Each wrapper launches its kernel for CUDA tensors (or raises)
+``csrc/ivf_scan_fma.cu``; bins deeper than 2, cap 3-32, in
+``csrc/ivf_scan_deep.cu`` and ``ivf_scan_deep32.cu``) over raw rows
+(IVF-Flat), ``fused_pq_scan`` (``csrc/pq_scan.cu``; bins deeper than 2 in
+``csrc/pq_scan_deep.cu``) over packed quantized codes through a per-slot
+lookup table (IVF-PQ and IVF-RaBitQ). Each wrapper launches its kernel for CUDA tensors (or raises)
 and runs its plain PyTorch version, ``*_reference`` with the same output
 contract, for CPU tensors.
 """

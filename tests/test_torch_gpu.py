@@ -276,18 +276,21 @@ def _lane_periodic(n, period):
 # queries on the fp32 tile
 _F32_TILE_PAIRS = [(torch.float32, torch.float32), (torch.float32, torch.bfloat16),
                    (torch.bfloat16, torch.float32)]
+# caps: the cap-2 kernels (1 writes one level) and the edges of the deep
+# depth classes 4, 8, 16, 32
+_SCAN_CAPS = [1, 2, 3, 4, 5, 8, 9, 16, 17, 32]
 _SCAN_TILE_CASES = (
-    [(dt, dt, dp, ip, 2) for dt in (torch.bfloat16, torch.int8) for dp in (96, 100, 128, 256)
-     for ip in (False, True)]
+    [(dt, dt, dp, ip, cap) for dt in (torch.bfloat16, torch.int8) for dp in (96, 100, 128, 256)
+     for ip in (False, True) for cap in _SCAN_CAPS]
     + [(dt, qdt, dp, ip, cap) for dt, qdt in _F32_TILE_PAIRS for dp in (96, 100, 128, 256, 960)
-       for ip in (False, True) for cap in (1, 2, 3, 32)])
+       for ip in (False, True) for cap in _SCAN_CAPS])
 
 
 # a tile of 128 slots that are all queries, one whose slots are all empty
 # (zero query rows), a mixed one, one whose list fills a 256-slice window,
-# one whose second 64-slot block is empty (the fp32 tile skips its products)
-# and one with only its last slot filled; dp on and off the 128-byte chunk;
-# cap 32 runs the kernels' runtime-depth path
+# one whose second 64-slot block is empty (the fp32 tile and the deep bins
+# skip its products) and one with only its last slot filled; dp on and off
+# the 128-byte chunk; every depth class, each over windows longer than it
 @pytest.mark.parametrize("dtype,qdtype,dp,ip,cap", _SCAN_TILE_CASES)
 def test_ivf_scan_mma_tiles_match_plain(cuda, dtype, qdtype, dp, ip, cap):
     rng = np.random.default_rng(dp + 7 * ip)
@@ -325,7 +328,7 @@ def test_ivf_scan_mma_tiles_match_plain(cuda, dtype, qdtype, dp, ip, cap):
 @pytest.mark.parametrize("dtype,qdtype", [(torch.bfloat16, torch.bfloat16),
                                           (torch.int8, torch.int8)] + _F32_TILE_PAIRS)
 @pytest.mark.parametrize("ip", [False, True])
-@pytest.mark.parametrize("cap", [1, 2, 3])
+@pytest.mark.parametrize("cap", _SCAN_CAPS)
 def test_ivf_scan_ties_keep_the_reference_slice(cuda, dtype, qdtype, ip, cap):
     rng = np.random.default_rng(cap + 5 * ip)
     M, nq, W, n_pad, d = 128, 200, 2048, 4096, 100
@@ -342,6 +345,32 @@ def test_ivf_scan_ties_keep_the_reference_slice(cuda, dtype, qdtype, ip, cap):
     torch.cuda.synchronize()
     rv, ri = ivf_scan.fused_ivf_scan_reference(*args, **kw)
     _assert_pool(kv, ki, rv, ri, exact_ints=True)
+
+
+# a window of 3 slices at caps past it: a bin takes one score a slice, so
+# levels 3 and deeper hold no entry, which the deep kernels write as
+# constants (depth class 4 serves cap 32 here); integer-valued rows, so the
+# pools are bit-identical
+@pytest.mark.parametrize("dtype,qdtype", [(torch.bfloat16, torch.bfloat16),
+                                          (torch.int8, torch.int8)] + _F32_TILE_PAIRS)
+@pytest.mark.parametrize("cap", [5, 32])
+def test_ivf_scan_short_window_leaves_deep_levels_empty(cuda, dtype, qdtype, cap):
+    rng = np.random.default_rng(cap)
+    M, nq, W, n_pad, d = 100, 200, 384, 2048, 100
+    x = _int_valued(rng, n_pad, d, dtype, cuda)
+    q = _int_valued(rng, nq, d, qdtype, cuda)
+    norms = (x.float() ** 2).sum(1)
+    qidx = torch.from_numpy(rng.integers(-1, nq, (3, M)).astype(np.int32)).to(cuda)
+    tiles = [torch.tensor(v, dtype=torch.int32, device=cuda)
+             for v in ([0, 512, 1024], [0, 50, 7], [384, 300, 0])]
+    args = (x, norms, q, qidx, *tiles, 1.0)
+    kw = dict(W=W, m_tile=M, ip=False, int8_mode=dtype == torch.int8, cap=cap)
+    kv, ki = ivf_scan.fused_ivf_scan(*args, **kw)
+    torch.cuda.synchronize()
+    rv, ri = ivf_scan.fused_ivf_scan_reference(*args, **kw)
+    _assert_pool(kv, ki, rv, ri, exact_ints=True)
+    assert torch.isinf(kv[:, :, 3 * 128:]).all() and not ki[:, :, 3 * 128:].any()
+    assert torch.isfinite(kv[0, :, :3 * 128]).any()
 
 
 def _tied_tables(case, rng, mode, use_pen=False):

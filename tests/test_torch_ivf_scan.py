@@ -40,8 +40,8 @@ def test_round_window_up_matches_reference():
             jax_ivf_scan._round_window_up(window, n_pad)
 
 
-def _scan_inputs(rng, dtype):
-    n_pad, dp, nq, M = 1024, 128, 20, 8
+def _scan_inputs(rng, dtype, n_pad=1024):
+    dp, nq, M = 128, 20, 8
     x = rng.standard_normal((n_pad, dp)).astype(np.float32)
     q = rng.standard_normal((nq, dp)).astype(np.float32)
     norms = np.pad((x * x).sum(1), (0, 4096)).astype(np.float32)
@@ -59,18 +59,24 @@ def _scan_inputs(rng, dtype):
             torch.from_numpy(x).to(tdt[xdt]), torch.from_numpy(q).to(tdt[qdt]), norms, 1.0)
 
 
+# caps 1, 4 and 9: the card's cap-2 kernel writing one level, and the edges
+# of its depth classes (4, 8 < 9 <= 16), over a 10-slice window whose lists
+# fill more slices than the cap, so the chain drops entries
 @pytest.mark.parametrize("dtype", ["f32", "bf16", "int8", "f32-bf16q", "bf16-f32q"])
 @pytest.mark.parametrize("ip", [False, True])
-@pytest.mark.parametrize("cap", [2, 3])
+@pytest.mark.parametrize("cap", [2, 3, 1, 4, 9])
 def test_scan_pool_matches_pallas_pool(dtype, ip, cap):
     rng = np.random.default_rng(3 * cap + ip)
-    _, _, jx, jq, tx, tq, norms, scale2 = _scan_inputs(rng, dtype)
-    n_tiles, M, W = 4, 8, 384
-    qidx = rng.integers(-1, 20, (n_tiles, M)).astype(np.int32)  # -1 = empty slot
+    n_tiles, M = 4, 8
     # tile 2 is empty (size 0); tiles 0 and 2 start past window position 0
     al = np.array([0, 128, 256, 512], np.int32)
     lo = np.array([5, 0, 100, 0], np.int32)
-    sizes = np.array([200, 300, 0, 250], np.int32)
+    if cap in (2, 3):
+        W, n_pad, sizes = 384, 1024, np.array([200, 300, 0, 250], np.int32)
+    else:
+        W, n_pad, sizes = 1280, 2048, np.array([1200, 1280, 0, 1100], np.int32)
+    _, _, jx, jq, tx, tq, norms, scale2 = _scan_inputs(rng, dtype, n_pad)
+    qidx = rng.integers(-1, 20, (n_tiles, M)).astype(np.int32)  # -1 = empty slot
     jv, ji = ivf_scan_pallas.fused_ivf_scan(
         jx, norms, jq, qidx, al, lo, sizes, jnp.float32(scale2), W=W, m_tile=M, inner=128,
         ip=ip, int8_mode=dtype == "int8", cap=cap, interpret=True)
