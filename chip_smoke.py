@@ -29,7 +29,14 @@ same shape): 1,000,000 x 128 f32, 4096 queries, k = 10.
      and + refine from 40 candidates, int8 table + refine; then one search
      at k = 100 (bf16 table: the kernel's deep bins, cap 4, recorded as the
      variant ``pq-bf16-k100``), its first 10 ids' recall at most 0.005 below
-     the k = 10 search's;
+     the k = 10 search's; then the same IVF-PQ at pq_bits 4 and 5 (byte codes
+     with a book of 16 and 32: the kernel's other widths, variants
+     ``pq-bf16-4bit`` and ``pq-bf16-5bit``), each searched at 50 probes with
+     the bf16 table, the 4-bit one also with the int8 table
+     (``pq-int8lut-4bit``) and at k = 100 (``pq-bf16-4bit-k100``: depth
+     class 4), their recall printed beside the 8-bit index's, each kernel
+     with the registers and local bytes of the instantiation it ran (none
+     may spill);
   7. IVF-RaBitQ (1024 lists, 3 bits per dimension: ivf_rabitq.yaml ``base``;
      128 x 3 bits = 12 words, so codes straddle words) with 50 probes
      through the same kernel, alone and + refine;
@@ -102,11 +109,11 @@ same shape): 1,000,000 x 128 f32, 4096 queries, k = 10.
      bits), searched at itopk 128 alone and + refine from 40 (at least 0.85);
  24. the composite of two exact brute-force halves (the exact kernel twice a
      batch, its calls recorded apart): phase 2's ids but at ties; then
-     CAGRA's logical merge of two 64 -> 32 halves of the first 500,000 rows;
- 25. ``build_ace`` on the first 500,000 rows (4 partitions, overlap 2, 64 -> 32,
+     CAGRA's logical merge of two 64 -> 32 halves of the first 300,000 rows;
+ 25. ``build_ace`` on the first 300,000 rows (4 partitions, overlap 2, 64 -> 32,
      the graph spilled to a memmap): a valid graph, its peak beside phase 18's,
      itopk 64 against those rows' exact top-10;
- 26. ``build_iterative`` on the first 25,000 rows (32/64, 3 rounds): recall
+ 26. ``build_iterative`` on the first 12,500 rows (32/64, 3 rounds): recall
      at least 0.50 against those rows' exact top-10; packed, its ids on the
      card and on a CPU copy (>= 99% equal); it and phase 23's index saved and
      loaded: searches bit-identical;
@@ -131,7 +138,7 @@ same shape): 1,000,000 x 128 f32, 4096 queries, k = 10.
  33. ``mg.build(x, "ivf_flat", "replicated")`` over 4 replicas (one set of
      tensors on one card): 4 round-robin calls visit every replica and equal a
      direct search; the load balancer within 0.005 of its recall;
- 34. ``mg.build(x[:500_000], "cagra")``: four shards of 125,000 rows built
+ 34. ``mg.build(x[:300_000], "cagra")``: four shards of 75,000 rows built
      64 -> 32, each build timed, itopk 64: recall at least 0.80 against those
      rows' exact top-10;
  35. ``mg`` save and load of phases 31 and 32: the same header fields and
@@ -276,9 +283,10 @@ SUB = 100_000  # the rows of the long tail's phases that are quadratic in n or h
 # the rows of CAGRA's merged halves (phase 24), the ACE build (25), the iterative build (26),
 # the Vamana build (27) and the sharded CAGRA (34): at 1M, 1M, 100,000, 250,000 and 1M rows
 # (8.8, 21.3, 36.6, 12.8 and 8.5 s on an H100) they took the script with phases 40-48 past
-# its 420 s budget
-PART_ROWS = 500_000
-ITER_ROWS = 25_000
+# its 420 s budget; 500,000 and 25,000 rows (4.3, 9.8, 12.0 and 6.6 s) left it 0.6 s under
+# that budget on a slow host once phase 6 gained the IVF-PQ code widths
+PART_ROWS = 300_000
+ITER_ROWS = 12_500
 L1_ROWS = 20_000  # the rows of phase 47's pointwise-tail (L1) sparse search
 VAMANA_ROWS = 100_000
 FLOAT_RTOL, FLOAT_ATOL, ID_MISMATCH = 1e-4, 1e-3, 1e-3
@@ -326,12 +334,13 @@ def kernels():
 
 def variant(name, args, kw):
     """The variant of a kernel call: the quantized scan's mode and table type
-    (RaBitQ: its bits per code), else the dtype of the first argument
-    (queries or rows)."""
+    (RaBitQ: its bits per code; IVF-PQ past 8 bits: its width too, as
+    ``pq-bf16-4bit``), else the dtype of the first argument (queries or
+    rows)."""
     if name == "pq_scan":
-        if kw.get("mode", "pq") == "rabitq":
-            return f"rabitq-{kw['bits']}bit"
-        return f"pq-{'int8lut' if kw.get('int8_mode') else 'bf16'}"
+        from cuvs_tpu_torch.bench.scan_compare import pq_variant
+
+        return pq_variant(kw)
     return str(args[0].dtype).replace("torch.", "")
 
 
@@ -1208,6 +1217,8 @@ def main() -> int:
     print(f"# build: {build_s.get('kernels', float('nan')):.1f} s (nvcc, sm_90a) -> "
           f"{_lib.library_path().name}; the port's C library "
           f"{build_s.get('C library', float('nan')):.1f} s (c++) -> {capi.library_path().name}")
+    print("# nvcc seconds per source, all at once: " + ", ".join(
+        f"{src} {sec:.1f}" for src, sec in sorted(_lib.NVCC_SECONDS.items(), key=lambda kv: -kv[1])))
 
     results, calls, counts = {}, {}, {}
     held0 = torch.cuda.memory_allocated(dev)  # the dataset and the queries
@@ -1333,6 +1344,36 @@ def main() -> int:
         check(rec100 >= rec10 - RECALL_SLACK,
               f"ivf_pq k={DEEP_K}: first {K} ids' recall below k={K}'s")
         del d100, i100
+        # the kernel's other code widths: IVF-PQ at 4 and 5 bits (byte codes, books of 16 and 32)
+        pq_bits = {b: build_ivf(f"ivf_pq {b}-bit", lambda b=b: ivf_pq.build(
+            x, n_lists=Q_LISTS, pq_dim=64, pq_bits=b, metric=ds.metric, seed=0)) for b in (4, 5)}
+        for b, index in pq_bits.items():
+            phase(f"ivf_pq{b}_fused_p{Q_PROBES}", lambda qq, ix=index: ivf_pq.search(
+                ix, qq, K, pq_sp[torch.bfloat16]))
+        phase(f"ivf_pq4_fused_int8lut_p{Q_PROBES}", lambda qq: ivf_pq.search(
+            pq_bits[4], qq, K, pq_sp[torch.int8]))
+        with tagged(f"-k{DEEP_K}"):
+            d100, i100 = ivf_pq.search(pq_bits[4], q, DEEP_K, pq_sp[torch.bfloat16])
+        torch.cuda.synchronize()
+        check(d100.shape == (q.shape[0], DEEP_K) and bool(torch.isfinite(d100).all()),
+              f"ivf_pq 4-bit k={DEEP_K}: shape or non-finite distances")
+        rec100 = id_recall(i100[:, :K].cpu(), gti)
+        rec4 = results[f"ivf_pq4_fused_p{Q_PROBES}"]["recall"]
+        check(rec100 >= rec4 - RECALL_SLACK,
+              f"ivf_pq 4-bit k={DEEP_K}: first {K} ids' recall below k={K}'s")
+        del d100, i100
+        for var in ("pq-bf16-4bit", "pq-bf16-5bit", "pq-int8lut-4bit", f"pq-bf16-4bit-k{DEEP_K}"):
+            attrs = scan_compare.pq_kernel_attributes(*calls[("pq_scan", var)])
+            print(f"# pq_scan [{var}]: {attrs['source']}, depth class {attrs['depth']}, "
+                  f"{attrs['slots']} slots a block, {attrs['blocks_per_sm']} blocks an SM, "
+                  f"{attrs['registers']} registers, {attrs['local_bytes']} local bytes")
+            check(attrs["family"] == 3 and attrs["local_bytes"] == 0,
+                  f"pq_scan [{var}] ran family {attrs['family']} with {attrs['local_bytes']} "
+                  f"local bytes: not the byte-code widths' instantiation, or it spills")
+        print(f"# ivf_pq p{Q_PROBES} recall@10 by pq_bits: 8 {rec10:.4f}, 5 "
+              f"{results[f'ivf_pq5_fused_p{Q_PROBES}']['recall']:.4f}, 4 {rec4:.4f} (int8 table "
+              f"{results[f'ivf_pq4_fused_int8lut_p{Q_PROBES}']['recall']:.4f}; k={DEEP_K}'s first "
+              f"{K} ids {rec100:.4f})")
         # 7. IVF-RaBitQ, 3 bits: the same kernel's rabitq epilogue
         rq = build_ivf("ivf_rabitq", lambda: ivf_rabitq.build(
             x, n_lists=Q_LISTS, bits_per_dim=3, metric=ds.metric, seed=0))
@@ -2207,21 +2248,28 @@ def main() -> int:
                 continue
             ms, out = cuda_ms(lambda: getattr(mod, wrapper)(*args, **kw))
             plain_ms, ref = cuda_ms(lambda: getattr(mod, plain)(*args, **kw))
-            kind = "int8lut" if var == "pq-int8lut" else "int" if var == "int8" else "float"
+            kind = ("int8lut" if var.startswith("pq-int8lut") else "int" if var == "int8"
+                    else "float")
             err, same = compare_pools(out, ref, kind)
             v = dict(launches=counts[(name, var)], ms=ms, plain_ms=plain_ms, max_abs_err=err,
                      **roofline.kernel_bound(name, args, kw, out), library_ms=None)
             v["share"] = v["bound_ms"] / ms
             if mod is bf_topk:
                 v["product_ms"] = roofline.product_ms(args[0], args[1])
-            if kw.get("cap", 2) > 2:  # the deep bins' source
+            if name == "pq_scan":  # the instantiation it ran, and its source
+                v["kernel"] = scan_compare.pq_kernel_attributes(args, kw)
+                v["source"] = os.path.join(os.path.dirname(source), v["kernel"]["source"])
+            elif kw.get("cap", 2) > 2:  # the deep bins' source
                 v["source"] = source.replace(".cu", "_deep.cu")
             shape = "x".join(str(s) for s in out[0].shape)
             print(f"# {name} [{var}], {v['launches']} launches: pool {shape} matches plain "
                   f"(max abs err {err:.3g}, "
                   f"bit-identical: {same}); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
                   f"bound {v['bound_ms']:.3f} ms ({v['bound_by']}, share {v['share']:.3f})"
-                  + (f", cuBLAS product {v['product_ms']:.3f} ms" if "product_ms" in v else ""))
+                  + (f", cuBLAS product {v['product_ms']:.3f} ms" if "product_ms" in v else "")
+                  + (f"; {v['kernel']['source']}, {v['kernel']['slots']} slots, depth class "
+                     f"{v['kernel']['depth']}, {v['kernel']['registers']} registers, "
+                     f"{v['kernel']['local_bytes']} local bytes" if "kernel" in v else ""))
             variants[var] = v
         check(variants, f"no recorded call of {name}")
         # headline: the bf16 call where the path makes one (the rest are in variants)

@@ -18,6 +18,7 @@ JSON object and writes it to ``--out``.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import contextlib
 import ctypes
 import json
@@ -56,11 +57,16 @@ def timed(fn, reps: int) -> float:
 def build_earlier(csrc: Path, sources=("bf_topk.cu",),
                   entries=("cuvs_bf_topk_exact", "cuvs_bf_topk_approx")) -> ctypes.CDLL:
     """Compile ``sources`` of an earlier csrc (with its headers) into a
-    library of its own and bind its C ``entries``."""
+    library of its own, one nvcc per source at once, and bind its C
+    ``entries``."""
     out = csrc / "_build" / f"libearlier_{'_'.join(Path(s).stem for s in sources)}.so"
     out.parent.mkdir(parents=True, exist_ok=True)
-    subprocess.run([_lib._nvcc(), *_lib.NVCC_FLAGS, "-I", str(csrc), "-shared", "-o", str(out),
-                    *(str(csrc / s) for s in sources)], check=True)
+    objs = [str(out.parent / (Path(s).stem + ".o")) for s in sources]
+    with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
+        list(pool.map(lambda so: subprocess.run(
+            [_lib._nvcc(), *_lib.NVCC_FLAGS, "-I", str(csrc), "-c", "-o", so[1],
+             str(csrc / so[0])], check=True), zip(sources, objs)))
+    subprocess.run([_lib._nvcc(), *_lib.NVCC_FLAGS, "-shared", "-o", str(out), *objs], check=True)
     so = ctypes.CDLL(str(out))
     for name in entries:
         fn = getattr(so, name)

@@ -20,16 +20,21 @@ queries), IVF-PQ (bf16 and int8 tables) and IVF-RaBitQ searches at k = 100
 9, depth classes 16 and 8), and the search of CAGRA's IVF-PQ graph build (1000
 lists, the default IVF-PQ parameters, 50 probes, the first 4096 base rows as
 queries) at k = 194 (``-k194``: cap 7, the 96 -> 64 build of chip_smoke.py) and
-258 (``-k258``: cap 9, cuVS's default 128 -> 64). Each time is the CUDA-event
-mean of ``reps`` calls after a warm-up. Beside them: the bound
+258 (``-k258``: cap 9, cuVS's default 128 -> 64). The code widths other than
+PQ 8-bit and RaBitQ 3-bit have variants of their own (``-<b>bit``): IVF-PQ at
+pq_bits 4, 5 and 6 in the same shape (bf16 and int8 tables), IVF-RaBitQ at 1,
+2, 4, 5 and 8 bits in phase 7's, each at k = 10 and 100, and the RaBitQ ones as
+the bench CLI searches them too (``-cli``: 10,000 queries, 10 probes). Each
+time is the CUDA-event mean of ``reps`` calls after a warm-up. Beside them: the bound
 (``roofline.py``), the kernel's share of it, how far its pool is from the plain
 version's, and for the quantized scan the shared-memory ceiling of its table
 lookups (``smem_ms``: every lookup's table bytes, S per valid (slot, row) pair,
 read once at 128 bytes per clock per SM at the card's maximum SM clock, with no
 bank conflict), whether the pool is bit-identical to DIR's build's
 (``same_as_earlier``), and for ``ivf_scan`` the kernel the call ran
-(``kernel``: registers, local bytes, depth class, slots a block, column parts).
-``--ptxas`` adds every kernel's registers, stack and spills. ``--searches``
+(``kernel``: registers, local bytes, depth class, slots a block, column parts;
+for ``pq_scan`` registers, local bytes, slots, blocks an SM holds, depth class
+and family). ``--ptxas`` adds every kernel's registers, stack and spills. ``--searches``
 keeps the searches whose names hold one of the substrings, and builds only
 their indexes. Then the per-batch split of each search into coarse search, pair
 grouping and windows (with the quantized searches' rotated operands, codebook
@@ -42,6 +47,7 @@ beside the search's own time. Prints one JSON object and writes it to
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import contextlib
 import ctypes
 import json
@@ -71,6 +77,10 @@ FLAT_WIDE_K = 258
 # CAGRA's IVF-PQ graph build at 1M rows (knn_graph.build_knn_graph): sqrt(n)
 # lists, 50 probes, (k + 1) * 2 candidates for 96 and 128 neighbours
 CAGRA_LISTS, CAGRA_PROBES, CAGRA_KS = 1000, 50, (194, 258)
+# the quantized scan's other code widths: IVF-PQ pq_bits (byte codes, book
+# 2^b) and IVF-RaBitQ bits a dimension; the CLI's RaBitQ searches (its
+# ivf_rabitq.yaml base grid) take the dataset's 10,000 queries at 10 probes
+PQ_WIDTHS, RQ_WIDTHS, CLI_RQ_PROBES = (4, 5, 6), (1, 2, 4, 5, 8), 10
 SMEM_BYTES_PER_CLOCK = 128  # per SM: 32 banks of 4 bytes
 
 # split phase -> the functions whose calls it sums (module, attribute)
@@ -84,10 +94,12 @@ PHASES = {
 }
 
 
-def indexes(x: torch.Tensor, metric, only=None) -> dict:
+def indexes(x: torch.Tensor, metric, only=None, q_cli=None) -> dict:
     """{search name: search(q)} over chip_smoke.py's three IVF indexes, the
-    CLI's f32 IVF-Flat and CAGRA's IVF-PQ build index. ``only``: substrings
-    of the names to keep (None: every search); only their indexes are built."""
+    CLI's f32 IVF-Flat, CAGRA's IVF-PQ build index and the IVF-PQ and
+    IVF-RaBitQ indexes at the other code widths (the ``-cli`` searches take
+    ``q_cli``, the CLI's queries, whatever q). ``only``: substrings of the
+    names to keep (None: every search); only their indexes are built."""
     builders = {
         "flat": lambda: ivf_flat.build(x, n_lists=N_LISTS, metric=metric, seed=0,
                                        storage_dtype=torch.bfloat16),
@@ -99,6 +111,10 @@ def indexes(x: torch.Tensor, metric, only=None) -> dict:
         "cg": lambda: ivf_pq.build(x, ivf_pq.IndexParams(
             n_lists=CAGRA_LISTS, metric=metric, seed=0,
             kmeans_trainset_fraction=100_000 / x.shape[0])),
+        **{f"pq{b}": (lambda b=b: ivf_pq.build(x, n_lists=Q_LISTS, pq_dim=64, pq_bits=b,
+                                               metric=metric, seed=0)) for b in PQ_WIDTHS},
+        **{f"rq{b}": (lambda b=b: ivf_rabitq.build(x, n_lists=Q_LISTS, bits_per_dim=b,
+                                                   metric=metric, seed=0)) for b in RQ_WIDTHS},
     }
     flat_sp = ivf_flat.SearchParams(n_probes=N_PROBES, scan_algo="fused",
                                     compute_dtype=torch.bfloat16, recall_target=0.97)
@@ -135,6 +151,18 @@ def indexes(x: torch.Tensor, metric, only=None) -> dict:
         **{f"cagra_ivf_pq-k{k}": ("cg", lambda ix, q, k=k: ivf_pq.search(
             ix, base_q, k, n_probes=CAGRA_PROBES)) for k in CAGRA_KS},
     }
+    for b in PQ_WIDTHS:
+        for lut, name in ((torch.bfloat16, "ivf_pq"), (torch.int8, "ivf_pq_int8lut")):
+            for k, tag in ((K, ""), (DEEP_K, f"-k{DEEP_K}")):
+                table[f"{name}-{b}bit{tag}"] = (f"pq{b}", lambda ix, q, k=k, lut=lut: ivf_pq.search(
+                    ix, q, k, pq_sp[lut]))
+    for b in RQ_WIDTHS:
+        for k, tag in ((K, ""), (DEEP_K, f"-k{DEEP_K}")):
+            table[f"ivf_rabitq-{b}bit{tag}"] = (f"rq{b}", lambda ix, q, k=k: ivf_rabitq.search(
+                ix, q, k, rq_sp))
+        if q_cli is not None:
+            table[f"ivf_rabitq-{b}bit-cli"] = (f"rq{b}", lambda ix, q: ivf_rabitq.search(
+                ix, q_cli, K, n_probes=CLI_RQ_PROBES))
     keep = {name: v for name, v in table.items()
             if only is None or any(o in name for o in only)}
     built = {key: builders[key]() for key in dict.fromkeys(key for key, _ in keep.values())}
@@ -152,6 +180,37 @@ def scan_kernel_attributes(args, kw) -> dict:
         _lib.DTYPE_CODE[data.dtype], _lib.DTYPE_CODE[qdt], qidx.shape[1], data.shape[1], W, cap,
         out), "cuvs_ivf_scan_attributes")
     return dict(zip(("registers", "local_bytes", "depth", "slots", "parts", "threads"), out))
+
+
+def pq_kernel_attributes(args, kw) -> dict:
+    """The pq_scan kernel that a recorded fused_pq_scan call runs, without
+    running it: registers, local (stack) bytes a thread, slots a block,
+    blocks an SM holds, depth class, family (csrc/pq_scan.cuh Kind) and the
+    source that holds it."""
+    queries, cb_t, qidx = args[2], args[3], args[5]
+    book, cap = kw.get("book", 256), kw.get("cap", 2)
+    out = (ctypes.c_int * 6)()
+    _lib.check(_lib.lib().cuvs_pq_scan_attributes(
+        qidx.shape[1], queries.shape[1], cb_t.shape[1] // book, book, kw.get("bits", 8),
+        kw["pq_len"], kw["W"], cap, int(kw.get("mode", "pq") == "rabitq"),
+        int(bool(kw.get("int8_mode"))), out), "cuvs_pq_scan_attributes")
+    attrs = dict(zip(("registers", "local_bytes", "slots", "blocks_per_sm", "depth", "family"),
+                     out))
+    # families 3 and 4 (csrc/pq_scan.cuh Kind) are the other compile-time widths
+    attrs["source"] = ("pq_scan_widths.cu" if attrs["family"] >= 3 else
+                       "pq_scan_deep.cu" if attrs["depth"] > 2 else "pq_scan.cu")
+    return attrs
+
+
+def pq_variant(kw) -> str:
+    """The name of a fused_pq_scan call's variant: RaBitQ by its bits a
+    code, IVF-PQ by its table type and, past 8 bits, its width (the book's
+    log2: PQ codes sit in bytes whatever the width)."""
+    if kw.get("mode", "pq") == "rabitq":
+        return f"rabitq-{kw['bits']}bit"
+    width = kw.get("book", 256).bit_length() - 1
+    return (f"pq-{'int8lut' if kw.get('int8_mode') else 'bf16'}"
+            + ("" if width == 8 else f"-{width}bit"))
 
 
 @contextlib.contextmanager
@@ -205,12 +264,11 @@ def record_calls(searches, q) -> dict:
             if name == "ivf_scan":
                 var = "ivf_scan " + searching[0].removeprefix("ivf_flat_")
             else:
-                mode = kw.get("mode", "pq")
-                lut = "int8lut" if kw.get("int8_mode") else "bf16"
-                var = ("pq_scan " + (f"rabitq-{kw['bits']}bit" if mode == "rabitq"
-                                     else f"pq-{lut}"))
+                var = "pq_scan " + pq_variant(kw)
                 if "-k" in searching[0]:
                     var += "-k" + searching[0].rsplit("-k", 1)[1]
+                if searching[0].endswith("-cli"):
+                    var += "-cli"
             calls[var] = (name, f, getattr(ops_scan, f.__name__ + "_reference"), args, kw)
             return f(*args, **kw)
         return rec
@@ -272,22 +330,25 @@ def main(argv=None) -> int:
     t0 = time.time()
     _lib.lib()
     scan_sources = ("ivf_scan.cu", "ivf_scan_fma.cu", "ivf_scan_deep.cu", "ivf_scan_deep32.cu",
-                    "pq_scan.cu", "pq_scan_deep.cu")
+                    "pq_scan.cu", "pq_scan_deep.cu", "pq_scan_widths.cu")
     earlier = (build_earlier(args.parent_csrc,
                              [s for s in scan_sources if (args.parent_csrc / s).exists()],
                              ("cuvs_ivf_scan", "cuvs_pq_scan")) if args.parent_csrc else None)
     print(f"# builds: {time.time() - t0:.1f} s")
     report = {"card": card, "reps": args.reps, "variants": {}}
     if args.ptxas:
-        report["ptxas"] = {k: v for src in scan_sources for k, v in ptxas_report(src).items()}
+        with concurrent.futures.ThreadPoolExecutor(len(scan_sources)) as pool:  # nvcc at once
+            report["ptxas"] = {k: v for rep in pool.map(ptxas_report, scan_sources)
+                               for k, v in rep.items()}
         for name, use in report["ptxas"].items():
             print(f"# ptxas {name}: {use}")
     dev = torch.device("cuda", 0)
     ds = datasets.load("sift-128-euclidean", max_rows=N)
     x = torch.from_numpy(ds.base).float().to(dev)  # as chip_smoke.py indexes it
     q = torch.from_numpy(ds.queries[:NQ].astype("float32")).to(dev)
+    q_cli = torch.from_numpy(ds.queries.astype("float32")).to(dev)
     t0 = time.time()
-    searches = indexes(x, ds.metric, args.searches.split(",") if args.searches else None)
+    searches = indexes(x, ds.metric, args.searches.split(",") if args.searches else None, q_cli)
     print(f"# index builds: {time.time() - t0:.1f} s")
     calls = record_calls(searches, q)
     for var, (name, wrapper, plain, call, kw) in sorted(calls.items()):
@@ -315,8 +376,8 @@ def main(argv=None) -> int:
         if prev is not None:  # the same pool, bit for bit, as the earlier build's
             row["same_as_earlier"] = bool(torch.equal(out[0], prev[0]) and
                                           torch.equal(out[1], prev[1]))
-        if name == "ivf_scan":
-            row["kernel"] = scan_kernel_attributes(call, kw)
+        row["kernel"] = (scan_kernel_attributes if name == "ivf_scan" else pq_kernel_attributes)(
+            call, kw)
         row.update(roofline.kernel_bound(name, call, kw, out))
         row["share"] = row["bound_ms"] / (sum(times["new"]) / len(times["new"]))
         row["max_abs_err"] = float((out[0][fin] - ref[0][fin]).abs().max())

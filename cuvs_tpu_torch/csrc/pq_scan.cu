@@ -1,6 +1,8 @@
 // Fused quantized-code IVF scan (IVF-PQ and IVF-RaBitQ) for Hopper (sm_90a):
 // pq_scan_kernel at cap <= 2 (the main path's k <= 64), the int8 table's
-// scale pass and the C entry point, which sends cap 3-32 to pq_scan_deep.cu.
+// scale pass and the C entry point, which sends IVF-PQ's other byte-code
+// books and IVF-RaBitQ's other widths at cap <= 4 to pq_scan_widths.cu, and
+// cap 3-32 otherwise to pq_scan_deep.cu.
 // The kernel replaces cuvs_tpu/ops/ivf_scan_pallas.py::_pq_scan_kernel; its
 // design and what bounds it: pq_scan.cuh.
 #include "pq_scan.cuh"
@@ -114,11 +116,13 @@ cudaError_t launch_shallow(const Plan& p, int n_tiles, cudaStream_t st, const Ar
   constexpr bool kInt8 = std::is_same<T, int8_t>::value;
   if constexpr (kSlots == 4)
     if (a.bits == 8 && a.book == 256 && p.two == kInt8)
-      return launch_scan_kernel(pq_scan_kernel<T, 4, 2, 8, kInt8 ? 2 : 1>, 4, n_tiles, st, a);
+      return launch_scan_kernel(pq_scan_kernel<T, 4, 2, 8, kInt8 ? 2 : 1>, 4, n_tiles, st, a, 2,
+                                kPq8);
   if constexpr (kSlots == 8 && !kInt8)
     if (a.bits == 3 && a.book == 8 && p.two)
-      return launch_scan_kernel(pq_scan_kernel<T, 8, 2, 3, 2>, 8, n_tiles, st, a);
-  return launch_scan_kernel(pq_scan_kernel<T, kSlots, 2, 0, 1>, kSlots, n_tiles, st, a);
+      return launch_scan_kernel(pq_scan_kernel<T, 8, 2, 3, 2>, 8, n_tiles, st, a, 2, kRabitq3);
+  return launch_scan_kernel(pq_scan_kernel<T, kSlots, 2, 0, 1>, kSlots, n_tiles, st, a, 2,
+                            kGeneric);
 }
 
 template <typename T>
@@ -140,41 +144,79 @@ static int words_per_row(int S, int bits) {
   return static_cast<int>((static_cast<long long>(S) * bits + 31) / 32);
 }
 
+// The scan's operands past the pointers: the flags, period and words that
+// both entry points derive from the shapes.
+static Args make_args(const void* codes, int Sw, int n_pad, const float* norms, int n_norms,
+                      const float* fr, const void* q, const void* cb, const void* ctile,
+                      const int* qidx, const int* al, const int* lo, const int* sizes, int M,
+                      int dp, int S, int book, int bits, int pq_len, int W, int cap, int rabitq,
+                      int ip, int use_pen, int int8_mode, float* absmax, float* out_v,
+                      uint8_t* out_i, int* attrs) {
+  return Args{static_cast<const uint32_t*>(codes), Sw, n_pad, norms, n_norms, fr,
+              static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(cb),
+              static_cast<const __nv_bfloat16*>(ctile), qidx, al, lo, sizes,
+              words_per_row(S, bits), M, dp, S, book, bits, pq_len, W, cap, rabitq, ip, use_pen,
+              int8_mode, n_pad % 4 == 0 && reinterpret_cast<uintptr_t>(codes) % 16 == 0,
+              (book & (book - 1)) == 0 ? __builtin_ctz(static_cast<unsigned>(book)) : -1,
+              32 / std::gcd(32, bits), bits / std::gcd(32, bits), absmax, out_v, out_i, attrs};
+}
+
+static bool valid_shapes(int S, int book, int bits, int pq_len, int W, int cap) {
+  return cap >= 1 && cap <= kMaxCap && W % kLanes == 0 && W / kLanes <= 256 && bits >= 1 &&
+         bits <= 32 && book >= 1 && S >= 1 && pq_len >= 1;
+}
+
+// The plan for a's shapes, then the int8 table's scale pass and the scan (or,
+// with a.attrs, the scan kernel's report alone).
+static cudaError_t run(const Args& a, int n_tiles, cudaStream_t st) {
+  // no block of the plan fits: the error, never another way to the pool
+  const DeepPlan w = plan_width(a);
+  const Plan p = w.slots > 0 || a.cap > 2 ? Plan{} : plan(a);
+  const DeepPlan deep = w.slots > 0 || a.cap <= 2 ? DeepPlan{} : plan_deep(a);
+  if (w.slots < 1 && (a.cap <= 2 ? p.slots < 1 : deep.slots < 1)) return cudaErrorInvalidValue;
+  if (a.int8_mode && a.attrs == nullptr) {
+    const int per_block = kAbsThreads * (a.book % 4 == 0 ? 4 : 1);
+    const int n_eb = (a.S * a.book + per_block - 1) / per_block;
+    const size_t row = static_cast<size_t>(a.dp) * sizeof(float);
+    const int chunk =
+        static_cast<int>(std::max<size_t>(1, std::min<size_t>(a.M, kAbsQBytes / row)));
+    if (chunk * row > static_cast<size_t>(kSmemMax)) return cudaErrorInvalidValue;
+    const cudaError_t e = launch(pq_lut_absmax_kernel, dim3(n_tiles * n_eb), dim3(kAbsThreads),
+                                 chunk * row, st, a, n_eb, chunk);
+    if (e != cudaSuccess) return e;
+  }
+  if (w.slots > 0) return launch_width(w, n_tiles, st, a);
+  if (a.cap > 2) return launch_deep(deep, n_tiles, st, a);
+  return a.int8_mode ? launch_slots<int8_t>(p, n_tiles, st, a)
+                     : launch_slots<__nv_bfloat16>(p, n_tiles, st, a);
+}
+
 extern "C" int cuvs_pq_scan(const void* codes, int Sw, int n_pad, const float* norms, int n_norms,
                             const float* fr, const void* q, const void* cb, const void* ctile,
                             const int* qidx, const int* al, const int* lo, const int* sizes,
                             int n_tiles, int M, int dp, int S, int book, int bits, int pq_len,
                             int W, int cap, int rabitq, int ip, int use_pen, int int8_mode,
                             float* absmax, float* out_v, uint8_t* out_i, void* stream) {
-  if (cap < 1 || cap > kMaxCap || W % kLanes || W / kLanes > 256 || bits < 1 || bits > 32 ||
-      book < 1 || S < 1 || pq_len < 1 || (rabitq && fr == nullptr))
+  if (!valid_shapes(S, book, bits, pq_len, W, cap) || (rabitq && fr == nullptr) ||
+      words_per_row(S, bits) > Sw)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int nw = words_per_row(S, bits);
-  if (nw > Sw) return static_cast<int>(cudaErrorInvalidValue);
-  const int vec = n_pad % 4 == 0 && reinterpret_cast<uintptr_t>(codes) % 16 == 0;
-  Args a{static_cast<const uint32_t*>(codes), Sw, n_pad, norms, n_norms, fr,
-         static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(cb),
-         static_cast<const __nv_bfloat16*>(ctile), qidx, al, lo, sizes,
-         nw, M, dp, S, book, bits, pq_len, W, cap, rabitq, ip, use_pen, int8_mode, vec,
-         (book & (book - 1)) == 0 ? __builtin_ctz(static_cast<unsigned>(book)) : -1,
-         32 / std::gcd(32, bits), bits / std::gcd(32, bits), absmax, out_v, out_i};
-  // no block of the plan fits: the error, never another way to the pool
-  const Plan p = cap <= 2 ? plan(a) : Plan{};
-  const DeepPlan deep = cap <= 2 ? DeepPlan{} : plan_deep(a);
-  if (cap <= 2 ? p.slots < 1 : deep.slots < 1) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (int8_mode) {
-    const int per_block = kAbsThreads * (book % 4 == 0 ? 4 : 1);
-    const int n_eb = (S * book + per_block - 1) / per_block;
-    const size_t row = static_cast<size_t>(dp) * sizeof(float);
-    const int chunk = static_cast<int>(std::max<size_t>(1, std::min<size_t>(M, kAbsQBytes / row)));
-    if (chunk * row > static_cast<size_t>(kSmemMax)) return static_cast<int>(cudaErrorInvalidValue);
-    const cudaError_t e = launch(pq_lut_absmax_kernel, dim3(n_tiles * n_eb), dim3(kAbsThreads),
-                                 chunk * row, st, a, n_eb, chunk);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  if (cap > 2) return static_cast<int>(launch_deep(deep, n_tiles, st, a));
-  const cudaError_t e = int8_mode ? launch_slots<int8_t>(p, n_tiles, st, a)
-                                  : launch_slots<__nv_bfloat16>(p, n_tiles, st, a);
-  return static_cast<int>(e);
+  const Args a = make_args(codes, Sw, n_pad, norms, n_norms, fr, q, cb, ctile, qidx, al, lo,
+                           sizes, M, dp, S, book, bits, pq_len, W, cap, rabitq, ip, use_pen,
+                           int8_mode, absmax, out_v, out_i, nullptr);
+  return static_cast<int>(run(a, n_tiles, static_cast<cudaStream_t>(stream)));
+}
+
+// The scan kernel that cuvs_pq_scan would run for these shapes, without
+// running anything: out[0..5] = registers, local (stack) bytes a thread,
+// slots a block, blocks an SM holds, depth class, family (Kind: 0 every
+// width through the bit buffer, 1 PQ 8-bit, 2 RaBitQ 3-bit, 3 the other
+// compile-time widths with a table, 4 RaBitQ's register entries).
+extern "C" int cuvs_pq_scan_attributes(int M, int dp, int S, int book, int bits, int pq_len, int W,
+                                       int cap, int rabitq, int int8_mode, int* out) {
+  if (!valid_shapes(S, book, bits, pq_len, W, cap)) return static_cast<int>(cudaErrorInvalidValue);
+  const Args a = make_args(nullptr, words_per_row(S, bits), 0, nullptr, 0, nullptr, nullptr,
+                           nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, M, dp, S, book,
+                           bits, pq_len, W, cap, rabitq, 0, 0, int8_mode, nullptr, nullptr,
+                           nullptr, out);
+  return static_cast<int>(run(a, 0, nullptr));
 }

@@ -1,9 +1,11 @@
 // Fused quantized-code IVF scan (IVF-PQ and IVF-RaBitQ) for Hopper (sm_90a):
-// the scan kernel and what its two sources share. pq_scan.cu holds the
-// shallow bins (cap <= 2, the main path's k <= 64), the int8 table's scale
-// pass and the C entry point; pq_scan_deep.cu the deep bins (cap 3-32: k > 64,
-// CAGRA's IVF-PQ graph build). They are two sources so that nvcc builds them
-// in parallel processes.
+// the scan kernel and what its sources share. pq_scan.cu holds the shallow
+// bins (cap <= 2, the main path's k <= 64), the int8 table's scale pass and
+// the C entry point; pq_scan_deep.cu the deep bins (cap 3-32: k > 64, CAGRA's
+// IVF-PQ graph build); pq_scan_widths.cu IVF-PQ's other code widths (byte
+// codes with a book of 16-128) and IVF-RaBitQ's (1, 2 and 4-8 bits), at cap
+// <= 4. They are separate sources so that nvcc builds them in parallel
+// processes.
 //
 // pq_scan_kernel replaces cuvs_tpu/ops/ivf_scan_pallas.py::_pq_scan_kernel
 // (via fused_pq_scan). One pair tile from group_pairs_tiled holds M query
@@ -50,10 +52,23 @@
 //    words 16 bytes at a time. int8 entries round v / scale by a multiply
 //    with the reciprocal, and by the IEEE division only near a half-integer,
 //    where the two could round apart.
-//  * Codes: PQ's 8-bit and RaBitQ's 3-bit codes with a full book decode
-//    with compile-time shifts (one funnel shift where a code straddles two
-//    words) and index the table with no book test; other widths and books
-//    go through a 64-bit bit buffer.
+//  * Codes: every full book (book = 2^bits: RaBitQ's 1-8 bits) and IVF-PQ's
+//    byte codes with a book of 2^4-2^8 decode with compile-time shifts (one
+//    funnel shift where a code straddles two words) over periods of whole
+//    words, and index the table with no per-code book test: a byte code past
+//    a short book (a code >= book selects the zero entry) is caught by one
+//    test of the period's word. Other books go through a 64-bit bit buffer.
+//    At cap <= 2 and depth class 4 every width an index build makes runs a
+//    compile-time instantiation; classes 8-32 run them for PQ 8-bit and
+//    RaBitQ 3-bit only.
+//  * RaBitQ's entries in registers at its wide codes (pq_len 1; the widths
+//    pq_scan_widths.cu names). Entry (s, c) of a slot is one product,
+//    q_s * cb[s, s*book + c], rounded to bf16: the block stages the decode
+//    matrix's S*book diagonal values once for all its slots (64 KB at 8
+//    bits, where a per-slot table took 64 KB a slot) and its slots' query
+//    values as bf16 pairs, and forms each entry with mul.rn.bf16x2, one
+//    rounding of the exact product as the table's fmaf(q, c, 0) then
+//    __float2bfloat16_rn: the same bits. No table build, 8 slots a block.
 //  * Rows in flight: kT = 4 threads per window row (512 per block), thread
 //    j summing code share j of the row for every slot: the periods j, j + 4,
 //    ... (a period is the fewest codes that fill whole words: 4 of 8 bits,
@@ -132,17 +147,32 @@ struct Args {
   float* absmax;  // [n_tiles] max |lut| per tile (int8 mode)
   float* out_v;
   uint8_t* out_i;
+  // not null: report the scan kernel a call would run (launch_scan_kernel),
+  // launch nothing
+  int* attrs;
 };
+
+// The families of scan instantiations: every width and book (a 64-bit bit
+// buffer), PQ 8-bit, RaBitQ 3-bit, and pq_scan_widths.cu's other
+// compile-time widths with a table (IVF-PQ's other byte-code books, RaBitQ's
+// narrow widths) or with RaBitQ's entries formed in registers.
+enum Kind { kGeneric = 0, kPq8 = 1, kRabitq3 = 2, kWidthTable = 3, kWidthReg = 4 };
 
 __host__ __device__ inline size_t align16(size_t b) { return (b + 15) / 16 * 16; }
 
-// Shared memory of a scan block of G slots: the slots' query rows, the
-// interleaved table (+ one zero entry), a two-stage ring of one slice's code
-// words, two stages of partial sums.
-inline size_t scan_smem(int G, const Args& a) {
-  return align16(static_cast<size_t>(G) * a.dp * 4) +
-         align16((static_cast<size_t>(a.S) * a.book + 1) * G * (a.int8_mode ? 1 : 2)) +
-         2 * static_cast<size_t>(a.nw) * kLanes * 4 + 2 * static_cast<size_t>(kT) * G * kLanes * 4;
+// Shared memory of a scan block of G slots: the interleaved table (+ one
+// zero entry), or with register entries (reg) the slots' query values
+// [S][G] bf16 and the decode matrix's diagonal [S*book] bf16; then a
+// two-stage ring of one slice's code words and two stages of partial sums.
+// The table's query rows [G][dp] f32 share the partial sums' space: they
+// are read only while the table is built, before the first partial sum.
+inline size_t scan_smem(int G, const Args& a, bool reg = false) {
+  const size_t part = 2 * static_cast<size_t>(kT) * G * kLanes * 4;
+  const size_t qrows = static_cast<size_t>(G) * a.dp * 4;
+  const size_t head =
+      reg ? align16(static_cast<size_t>(a.S) * G * 2) + align16(static_cast<size_t>(a.S) * a.book * 2)
+          : align16((static_cast<size_t>(a.S) * a.book + 1) * G * (a.int8_mode ? 1 : 2));
+  return head + 2 * static_cast<size_t>(a.nw) * kLanes * 4 + (reg || part >= qrows ? part : qrows);
 }
 
 // What one block may take: all of an SM's shared memory, or half of it less
@@ -372,6 +402,28 @@ __device__ __forceinline__ void add_entry(const int8_t* lut, int e, int (&acc)[k
   }
 }
 
+// acc[g] += entry (s, c) of slot g, formed in registers (RaBitQ, pq_len 1):
+// the slot's query value q_g (qrow: row s of [S][kSlots] bf16, two slots a
+// word) times the diagonal value d = cb[s, s*book + c], one product of two
+// bf16 values rounded once to bf16 by mul.rn.bf16x2, as the table's
+// __float2bfloat16_rn(fmaf(q, d, 0)) rounds it (the product is exact in f32,
+// subnormals included). A -0 entry where the table holds +0 changes no sum:
+// the accumulators start at +0 and x + -0 = x.
+template <int kSlots>
+__device__ __forceinline__ void reg_entry(const uint32_t* qrow, uint32_t d, float (&acc)[kSlots]) {
+  constexpr int kW = kSlots / 2;
+  uint32_t w[kW];
+  load_words<kW>(qrow, w);
+  const uint32_t dd = __byte_perm(d, 0, 0x1010);  // (d, d)
+#pragma unroll
+  for (int i = 0; i < kW; ++i) {
+    uint32_t p;
+    asm("mul.rn.bf16x2 %0, %1, %2;" : "=r"(p) : "r"(w[i]), "r"(dd));
+    acc[2 * i] = __fadd_rn(acc[2 * i], __uint_as_float(p << 16));
+    acc[2 * i + 1] = __fadd_rn(acc[2 * i + 1], __uint_as_float(p & 0xffff0000u));
+  }
+}
+
 // ---------------------------------------------------------------------------
 // Scan
 // ---------------------------------------------------------------------------
@@ -380,17 +432,27 @@ __host__ __device__ constexpr int gcd_c(int a, int b) { return b == 0 ? a : gcd_
 
 // T: table type (bf16, or int8 with int8_mode). kSlots slots per block.
 // kDepth: the bins' compile-time depth, >= a.cap; the first a.cap levels are
-// written out. kBits > 0: compile-time code width and book == 2^kBits; 0: any
-// width and book, through a 64-bit bit buffer. kMinBlocks: blocks per SM the
-// registers must allow.
+// written out. kBits > 0: compile-time code width and book == 2^kBookLog2
+// (kBookLog2 < kBits only for byte codes: kBits 8); 0: any width and book,
+// through a 64-bit bit buffer. kMinBlocks: blocks per SM the registers must
+// allow. kReg: entries formed in registers (RaBitQ, pq_len 1, bf16, full
+// book), no table.
 // n_tiles * ceil(M / kSlots) blocks, kT * 128 threads: thread (j, lane)
 // sums code share j of window row `lane` of each slice for every slot, and
 // keeps the bins of lane `lane` of slots j, j + kT, ...
-// Shared memory (scan_smem): the slots' query rows, the interleaved table
-// (+ one zero entry), a two-stage ring of one slice's code words
-// sw[stage][w][lane], and two stages of partial sums part[stage][j][g][lane].
-template <typename T, int kSlots, int kDepth, int kBits, int kMinBlocks>
+// Shared memory (scan_smem): the interleaved table (+ one zero entry), or
+// with kReg the slots' query values and the diagonal; a two-stage ring of
+// one slice's code words sw[stage][w][lane], and two stages of partial sums
+// part[stage][j][g][lane], where the table's query rows sit while it is
+// built.
+template <typename T, int kSlots, int kDepth, int kBits, int kMinBlocks, int kBookLog2 = kBits,
+          bool kReg = false>
 __global__ void __launch_bounds__(kLanes* kT, kMinBlocks) pq_scan_kernel(Args a) {
+  static_assert(kBookLog2 == kBits || (kBits == 8 && kBookLog2 < 8 && !kReg),
+                "a short compile-time book: byte codes only");
+  static_assert(!kReg || (kBits >= 3 && std::is_same<T, __nv_bfloat16>::value && kSlots >= 2 &&
+                          kSlots <= 8),
+                "register entries: a compile-time width of 3+ bits, bf16, 2-8 slots");
   extern __shared__ __align__(16) unsigned char smem[];
   using Acc = typename std::conditional<std::is_same<T, int8_t>::value, int, float>::type;
   constexpr int kOwn = (kSlots + kT - 1) / kT;  // slots whose bins a thread keeps
@@ -416,12 +478,17 @@ __global__ void __launch_bounds__(kLanes* kT, kMinBlocks) pq_scan_kernel(Args a)
     }
     return;
   }
-  float* qs = reinterpret_cast<float*>(smem);
-  T* lut = reinterpret_cast<T*>(smem + align16(static_cast<size_t>(kSlots) * a.dp * sizeof(float)));
+  T* lut = reinterpret_cast<T*>(smem);
+  // kReg: the slots' query values [S][kSlots] bf16, then the diagonal [S*book]
+  uint16_t* qv = reinterpret_cast<uint16_t*>(smem);
+  uint16_t* dg = reinterpret_cast<uint16_t*>(smem + align16(static_cast<size_t>(a.S) * kSlots * 2));
   uint32_t* ring = reinterpret_cast<uint32_t*>(
-      reinterpret_cast<unsigned char*>(lut) +
-      align16(static_cast<size_t>(SB + 1) * kSlots * sizeof(T)));
+      kReg ? reinterpret_cast<unsigned char*>(dg) + align16(static_cast<size_t>(SB) * 2)
+           : smem + align16(static_cast<size_t>(SB + 1) * kSlots * sizeof(T)));
   Acc* part = reinterpret_cast<Acc*>(ring + 2 * a.nw * kLanes);  // [2][kT][kSlots][128]
+  // the table's query rows [kSlots][dp]: read only while the table is built,
+  // which the loop's first barrier ends before score(0) writes a partial sum
+  float* qs = reinterpret_cast<float*>(part);
 
   const int base = a.al[t];
   const int l = a.lo[t], h = l + a.sizes[t];
@@ -448,29 +515,57 @@ __global__ void __launch_bounds__(kLanes* kT, kMinBlocks) pq_scan_kernel(Args a)
     }
   };
   stage(0, 0);  // in flight while the table is built
-  cp_async_commit();
-  const int live = min(kSlots, a.M - m0);
-  load_qrows(a, t, m0, kSlots, qs);
-  __syncthreads();
-  const float ls = a.int8_mode ? __fdiv_rn(fmaxf(a.absmax[t], 1e-30f), 127.f) : 1.f;
-  const float inv_ls = 1.f / ls;
-  auto store = [&](int e, const float (&acc)[kSlots]) {
-#pragma unroll
-    for (int g = 0; g < kSlots; ++g) {
-      if constexpr (std::is_same<T, int8_t>::value)  // |lut/ls| <= 127: no clip needed
-        lut[e * kSlots + g] = quantize(acc[g], ls, inv_ls);
-      else
-        lut[e * kSlots + g] = __float2bfloat16_rn(acc[g]);
+  if constexpr (kReg) {
+    // the diagonal, dg[s*book + c] = cb[s, s*book + c] (zero past dp), in
+    // slice 0's copy group; the query values by plain stores. The loop's
+    // first barrier publishes both.
+    if ((reinterpret_cast<uintptr_t>(a.cb) & 15) == 0) {  // 8 entries (one subspace) a copy
+      for (int u = threadIdx.x; u < SB / 8; u += blockDim.x) {
+        const int e = 8 * u, s = e >> kBits;
+        const bool in = s < a.dp;
+        cp_async16(smem_addr(dg + e), in ? a.cb + static_cast<size_t>(s) * SB + e : a.cb,
+                   in ? 16 : 0);
+      }
+    } else {
+      for (int e = threadIdx.x; e < SB; e += blockDim.x) {
+        const int s = e >> kBits;
+        dg[e] = s < a.dp ? __bfloat16_as_ushort(a.cb[static_cast<size_t>(s) * SB + e]) : 0;
+      }
     }
-  };
-  // entry SB, zero, is what an out-of-book code selects
-  if (a.book % 4 == 0) {
-    lut_quads<kSlots>(a, qs, live, [&](int e0, const float (&acc)[4][kSlots]) {
-      store_quad<T, kSlots>(lut, e0, acc, ls, inv_ls);
-    });
-    if (threadIdx.x == 0) store(SB, {});
+    cp_async_commit();
+    for (int e = threadIdx.x; e < a.S * kSlots; e += blockDim.x) {
+      const int s = e / kSlots, m = m0 + e % kSlots;
+      const int qi = m < a.M ? a.qidx[static_cast<size_t>(t) * a.M + m] : -1;
+      qv[e] = qi >= 0 && s < a.dp ? __bfloat16_as_ushort(a.q[static_cast<size_t>(qi) * a.dp + s])
+                                  : 0;
+    }
   } else {
-    lut_entries<kSlots>(a, qs, live, SB + 1, store);
+    cp_async_commit();
+    load_qrows(a, t, m0, kSlots, qs);
+    __syncthreads();
+  }
+  const float ls = a.int8_mode ? __fdiv_rn(fmaxf(a.absmax[t], 1e-30f), 127.f) : 1.f;
+  if constexpr (!kReg) {
+    const int live = min(kSlots, a.M - m0);
+    const float inv_ls = 1.f / ls;
+    auto store = [&](int e, const float (&acc)[kSlots]) {
+#pragma unroll
+      for (int g = 0; g < kSlots; ++g) {
+        if constexpr (std::is_same<T, int8_t>::value)  // |lut/ls| <= 127: no clip needed
+          lut[e * kSlots + g] = quantize(acc[g], ls, inv_ls);
+        else
+          lut[e * kSlots + g] = __float2bfloat16_rn(acc[g]);
+      }
+    };
+    // entry SB, zero, is what an out-of-book code selects
+    if (a.book % 4 == 0) {
+      lut_quads<kSlots>(a, qs, live, [&](int e0, const float (&acc)[4][kSlots]) {
+        store_quad<T, kSlots>(lut, e0, acc, ls, inv_ls);
+      });
+      if (threadIdx.x == 0) store(SB, {});
+    } else {
+      lut_entries<kSlots>(a, qs, live, SB + 1, store);
+    }
   }
 
   Bins<kDepth> bins[kOwn];
@@ -518,36 +613,59 @@ __global__ void __launch_bounds__(kLanes* kT, kMinBlocks) pq_scan_kernel(Args a)
     Acc acc[kSlots];
 #pragma unroll
     for (int g = 0; g < kSlots; ++g) acc[g] = Acc(0);
-    auto lookup = [&](int s, uint32_t code) {
-      if constexpr (kBits > 0)  // book == 2^kBits: every code is in the book
-        add_entry<kSlots>(lut, (s << kBits) | static_cast<int>(code), acc);
+    // entry e of every slot into acc: from the table, or formed in registers
+    auto add = [&](int e) {
+      if constexpr (kReg)
+        reg_entry<kSlots>(reinterpret_cast<const uint32_t*>(qv) + (e >> kBits) * (kSlots / 2),
+                          dg[e], acc);
       else
-        add_entry<kSlots>(lut,
-                          code < static_cast<uint32_t>(a.book)
-                              ? s * a.book + static_cast<int>(code)
-                              : SB,
-                          acc);
+        add_entry<kSlots>(lut, e, acc);
+    };
+    auto lookup = [&](int s, uint32_t code) {
+      if constexpr (kBits > 0)  // code < 2^kBookLog2 == book (a short book: the caller tests)
+        add((s << kBookLog2) | static_cast<int>(code));
+      else
+        add(code < static_cast<uint32_t>(a.book) ? s * a.book + static_cast<int>(code) : SB);
     };
     if constexpr (kBits > 0) {
       // periods of kP codes in kWp whole words, periods j, j + kT, ...:
       // constant shifts, a funnel shift where a code straddles two words
       constexpr int kWp = kBits / gcd_c(32, kBits), kP = 32 / gcd_c(32, kBits);
       constexpr uint32_t kMask = kBits >= 32 ? 0xffffffffu : (1u << kBits) - 1;
-#pragma unroll 4
+      // about 16 codes a pass (RaBitQ 3-bit as it was: 128)
+      constexpr int kUnroll = kBits == 3 && !kReg ? 4 : (kP >= 16 ? 1 : 16 / kP);
+#pragma unroll (kUnroll)
       for (int p = j; p * kP < a.S; p += kT) {
         uint32_t wd[kWp];
 #pragma unroll
         for (int i2 = 0; i2 < kWp; ++i2)
           wd[i2] = p * kWp + i2 < a.nw ? sw[(p * kWp + i2) * kLanes] : 0u;
+        auto codes = [&](auto checked) {
 #pragma unroll
-        for (int c = 0; c < kP; ++c) {
-          const int bit = c * kBits, w = bit / 32, o = bit % 32;
-          const uint32_t code =
-              (o + kBits <= 32 ? wd[w] >> o
-                               : __funnelshift_r(wd[w], wd[w + 1 < kWp ? w + 1 : w], o)) &
-              kMask;
-          if (p * kP + c < a.S) lookup(p * kP + c, code);
+          for (int c = 0; c < kP; ++c) {
+            const int bit = c * kBits, w = bit / 32, o = bit % 32;
+            const uint32_t code =
+                (o + kBits <= 32 ? wd[w] >> o
+                                 : __funnelshift_r(wd[w], wd[w + 1 < kWp ? w + 1 : w], o)) &
+                kMask;
+            if (p * kP + c >= a.S) continue;
+            if constexpr (decltype(checked)::value)  // past the book: the zero entry
+              add(code < (1u << kBookLog2) ? ((p * kP + c) << kBookLog2) | static_cast<int>(code)
+                                           : SB);
+            else
+              lookup(p * kP + c, code);
+          }
+        };
+        if constexpr (kBookLog2 < kBits) {
+          // byte codes of a short book: one test of the word finds a code
+          // past the book, which no index build writes
+          constexpr uint32_t kHigh = 0x01010101u * (0xffu & ~((1u << kBookLog2) - 1u));
+          if (wd[0] & kHigh) {
+            codes(std::true_type{});
+            continue;
+          }
         }
+        codes(std::false_type{});
       }
     } else {
       // the same periods, each through a 64-bit bit buffer from its first
@@ -617,21 +735,44 @@ cudaError_t launch(Kern kernel, dim3 grid, dim3 block, size_t smem, cudaStream_t
 }
 
 // A scan block of `slots` slots over every tile: n_tiles * ceil(M / slots)
-// blocks of kT * 128 threads.
+// blocks of kT * 128 threads. With a.attrs, launch nothing and report the
+// kernel: registers, local (stack) bytes a thread, slots a block, blocks an
+// SM holds (registers and shared memory), depth class, family (Kind).
 template <typename Kern>
-cudaError_t launch_scan_kernel(Kern kernel, int slots, int n_tiles, cudaStream_t st,
-                               const Args& a) {
-  return launch(kernel, dim3(n_tiles * ((a.M + slots - 1) / slots)), dim3(kT * kLanes),
-                scan_smem(slots, a), st, a);
+cudaError_t launch_scan_kernel(Kern kernel, int slots, int n_tiles, cudaStream_t st, const Args& a,
+                               int depth, Kind kind, bool reg = false) {
+  const size_t smem = scan_smem(slots, a, reg);
+  if (a.attrs != nullptr) {
+    cudaFuncAttributes fa;
+    cudaError_t e = cudaFuncGetAttributes(&fa, kernel);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    int blocks = 0;
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kT * kLanes, smem);
+    const int report[6] = {fa.numRegs, static_cast<int>(fa.localSizeBytes), slots, blocks, depth,
+                           kind};
+    for (int i = 0; i < 6; ++i) a.attrs[i] = report[i];
+    return e;
+  }
+  return launch(kernel, dim3(n_tiles * ((a.M + slots - 1) / slots)), dim3(kT * kLanes), smem, st,
+                a);
 }
 
 // pq_scan_deep.cu: the scan at cap 3..kMaxCap. slots = 0: no block fits.
 struct DeepPlan {
   int slots = 0;
-  int kind = 0;  // the family of instantiations (pq_scan_deep.cu)
+  Kind kind = kGeneric;  // the family of instantiations (pq_scan_deep.cu)
 };
 DeepPlan plan_deep(const Args& a);
 cudaError_t launch_deep(const DeepPlan& p, int n_tiles, cudaStream_t st, const Args& a);
+
+// pq_scan_widths.cu: the compile-time widths that pq_scan.cu and
+// pq_scan_deep.cu do not hold, at cap <= 4: kind kWidthTable or kWidthReg.
+// slots = 0: none applies or fits.
+DeepPlan plan_width(const Args& a);
+cudaError_t launch_width(const DeepPlan& p, int n_tiles, cudaStream_t st, const Args& a);
 
 }  // namespace pq
 }  // namespace cuvs_tpu_torch

@@ -16,7 +16,9 @@
 //  * RaBitQ 3-bit: 8 slots (two bins a thread), two blocks per SM at D <= 8
 //    (64 registers, no spill), one at D = 16 and 32 (108 and 128).
 //  * Every other width and book: the most slots (4, 2, 1) that fit one block
-//    per SM, the codes through the 64-bit bit buffer.
+//    per SM, the codes through the 64-bit bit buffer. At cap 3-4 the widths
+//    the index builds make run pq_scan_widths.cu's instantiations instead (depth
+//    class 4); classes 8-32 run these.
 #include "pq_scan.cuh"
 
 namespace cuvs_tpu_torch {
@@ -24,20 +26,23 @@ namespace pq {
 
 namespace {
 
-// Instantiation families: the 8-bit PQ and 3-bit RaBitQ codes with a full
-// book (compile-time decode), and every other width and book.
-enum Kind { kGeneric = 0, kPq8 = 1, kRabitq3 = 2 };
-
+// Instantiation families (Kind): the 8-bit PQ and 3-bit RaBitQ codes with a
+// full book (compile-time decode), and every other width and book.
 // kD<D>: the blocks per SM that the registers of depth class D allow
 template <typename T, int kSlots, int kBits, int kD4, int kD8, int kD16, int kD32>
 cudaError_t launch_classes(int n_tiles, cudaStream_t st, const Args& a) {
+  constexpr Kind kind = kBits == 8 ? kPq8 : kBits == 3 ? kRabitq3 : kGeneric;
   if (a.cap <= 4)
-    return launch_scan_kernel(pq_scan_kernel<T, kSlots, 4, kBits, kD4>, kSlots, n_tiles, st, a);
+    return launch_scan_kernel(pq_scan_kernel<T, kSlots, 4, kBits, kD4>, kSlots, n_tiles, st, a, 4,
+                              kind);
   if (a.cap <= 8)
-    return launch_scan_kernel(pq_scan_kernel<T, kSlots, 8, kBits, kD8>, kSlots, n_tiles, st, a);
+    return launch_scan_kernel(pq_scan_kernel<T, kSlots, 8, kBits, kD8>, kSlots, n_tiles, st, a, 8,
+                              kind);
   if (a.cap <= 16)
-    return launch_scan_kernel(pq_scan_kernel<T, kSlots, 16, kBits, kD16>, kSlots, n_tiles, st, a);
-  return launch_scan_kernel(pq_scan_kernel<T, kSlots, 32, kBits, kD32>, kSlots, n_tiles, st, a);
+    return launch_scan_kernel(pq_scan_kernel<T, kSlots, 16, kBits, kD16>, kSlots, n_tiles, st, a,
+                              16, kind);
+  return launch_scan_kernel(pq_scan_kernel<T, kSlots, 32, kBits, kD32>, kSlots, n_tiles, st, a, 32,
+                            kind);
 }
 
 template <typename T>

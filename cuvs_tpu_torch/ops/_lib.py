@@ -11,6 +11,7 @@ a GPU or a CUDA toolkit.
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import functools
 import hashlib
@@ -18,6 +19,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
 from pathlib import Path
 
 import torch
@@ -42,7 +44,10 @@ _SIGNATURES = {
     "cuvs_ivf_scan_attributes": [_I, _I, _I, _I, _I, _I, _P],
     "cuvs_pq_scan": [_P, _I, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                      _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+    "cuvs_pq_scan_attributes": [_I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
 }
+# seconds of each source's nvcc in the last build of this process (build())
+NVCC_SECONDS: dict = {}
 
 
 def _sources():
@@ -79,15 +84,20 @@ def build() -> Path:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-        procs = [(src, subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", os.path.join(tmp, src.stem + ".o"),
-             str(src)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-            for src in sorted(CSRC.glob("*.cu"))]
-        failed = []
-        for src, proc in procs:  # wait for every compiler before raising
-            log = proc.communicate()[0]
-            if proc.returncode != 0:
-                failed.append(f"{src.name} ({proc.returncode}):\n{log}")
+        srcs = sorted(CSRC.glob("*.cu"))
+
+        def compile_one(src):
+            t0 = time.time()
+            proc = subprocess.run([nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o",
+                                   os.path.join(tmp, src.stem + ".o"), str(src)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            NVCC_SECONDS[src.name] = time.time() - t0
+            return proc
+
+        with concurrent.futures.ThreadPoolExecutor(len(srcs)) as pool:  # every source at once
+            procs = list(zip(srcs, pool.map(compile_one, srcs)))
+        failed = [f"{src.name} ({proc.returncode}):\n{proc.stdout}" for src, proc in procs
+                  if proc.returncode != 0]
         if failed:
             raise RuntimeError("nvcc failed: " + "\n".join(failed))
         so = os.path.join(tmp, out.name)

@@ -7,8 +7,10 @@ device memory: ``fused_ivf_scan`` (``csrc/ivf_scan.cu``; f32 rows in
 ``csrc/ivf_scan_fma.cu``; bins deeper than 2, cap 3-32, in
 ``csrc/ivf_scan_deep.cu`` and ``ivf_scan_deep32.cu``) over raw rows
 (IVF-Flat), ``fused_pq_scan`` (``csrc/pq_scan.cu``; bins deeper than 2 in
-``csrc/pq_scan_deep.cu``) over packed quantized codes through a per-slot
-lookup table (IVF-PQ and IVF-RaBitQ). Each wrapper launches its kernel for CUDA tensors (or raises)
+``csrc/pq_scan_deep.cu``; IVF-PQ's byte codes with a book of 16-128, and
+IVF-RaBitQ at 1, 2 and 4-8 bits with its entries formed in registers, in
+``csrc/pq_scan_widths.cu``) over packed quantized
+codes through a per-slot lookup table (IVF-PQ and IVF-RaBitQ). Each wrapper launches its kernel for CUDA tensors (or raises)
 and runs its plain PyTorch version, ``*_reference`` with the same output
 contract, for CPU tensors.
 """

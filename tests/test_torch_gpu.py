@@ -468,6 +468,116 @@ def test_pq_scan_rabitq_every_width(cuda, bits, short_book, S, cap):
     _assert_pq_pool(kv, ki, rv, ri, False)
 
 
+# IVF-PQ at every width 4-8 (byte codes, book 2^b): a full book (the width's
+# compile-time instantiation at caps 1-4), a full book with codes past it
+# ("stray": a byte code >= book selects nothing; the period's word test
+# routes it), and a book one short (the bit buffer); bf16 and int8 tables,
+# S = 62 (15.5 words: off a whole period), caps on every depth class, plain
+# and tied tables. Every pool bit-identical to the plain version's (int8: but
+# where an entry's lut/scale sits on a rounding boundary).
+@pytest.mark.parametrize("pq_bits", [4, 5, 6, 7, 8])
+@pytest.mark.parametrize("book_kind", ["full", "stray", "short"])
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("cap", [1, 2, 3, 4, 9, 32])
+@pytest.mark.parametrize("tied", [False, True])
+def test_pq_scan_kernel_matches_plain_pq_every_width(cuda, pq_bits, book_kind, int8, cap, tied):
+    if book_kind == "stray" and pq_bits == 8:
+        pytest.skip("a byte code cannot pass a book of 256")
+    book = (1 << pq_bits) - (book_kind == "short")
+    drawn = (1 << pq_bits) + (4 if book_kind == "stray" else 0)
+    S, pq_len = 62, 2
+    seed = pq_bits + 10 * cap + 7 * int8 + 100 * tied + 1000 * ["full", "stray", "short"].index(
+        book_kind)
+    case = pq_scan_case(seed, "pq", 8, S, drawn, pq_len, **_PQ_GEOM)
+    case["codebook"] = np.ascontiguousarray(case["codebook"][:, :book])
+    if tied:
+        case = _tied_tables(case, np.random.default_rng(seed), "pq")
+    args, kw = _pq_scan_args(case, "pq", 8, book, pq_len, cap % 2 == 1, False, int8, cap,
+                             _PQ_GEOM["W"], cuda)
+    kv, ki = ivf_scan.fused_pq_scan(*args, **kw)
+    torch.cuda.synchronize()
+    rv, ri = ivf_scan.fused_pq_scan_reference(*args, **kw)
+    if tied:
+        _assert_pool(kv, ki, rv, ri, exact_ints=True)
+    else:
+        _assert_pq_pool(kv, ki, rv, ri, int8)
+
+
+# RaBitQ at 1, 2 and 4-8 bits (a table to 4 bits, entries formed in
+# registers from 5) against the plain version's table values: tied query values (small integers: every sum exact, bins see exact ties),
+# near-zero ones (1e-36: products in and below the normal range) and
+# subnormal ones (m * 2^-133, bf16's subnormal step, times half-integer
+# levels: entries on ties of the subnormal grid, rounded to even). The row
+# factors are fa = 0, fr = 1, so the pool holds the code sums themselves.
+@pytest.mark.parametrize("bits", [1, 2, 4, 5, 6, 7, 8])
+@pytest.mark.parametrize("queries", ["tied", "near_zero", "subnormal"])
+@pytest.mark.parametrize("cap", [2, 4])
+@pytest.mark.parametrize("S", [128, 100])
+def test_pq_scan_rabitq_register_entries_match_plain(cuda, bits, queries, cap, S):
+    seed = bits + 10 * cap + S
+    rng = np.random.default_rng(seed)
+    case = pq_scan_case(seed, "rabitq", bits, S, 1 << bits, 1, **_PQ_GEOM)
+    if queries == "tied":
+        case = _tied_tables(case, rng, "rabitq")
+    else:
+        shape = case["queries"].shape
+        q = (rng.standard_normal(shape) * 1e-36 if queries == "near_zero" else
+             rng.integers(-127, 128, shape) * 2.0 ** -133)  # bf16's subnormals: exact
+        case["queries"] = torch.from_numpy(q.astype(np.float32)).bfloat16().float().numpy()
+        case["norms"] = np.zeros_like(case["norms"])
+        case["fr"] = np.ones_like(case["fr"])
+    args, kw = _pq_scan_args(case, "rabitq", bits, 1 << bits, 1, False, False, False, cap,
+                             _PQ_GEOM["W"], cuda)
+    kv, ki = ivf_scan.fused_pq_scan(*args, **kw)
+    torch.cuda.synchronize()
+    rv, ri = ivf_scan.fused_pq_scan_reference(*args, **kw)
+    if queries != "tied":  # the sums are tiny and not all zero
+        fin = torch.isfinite(rv)
+        assert (rv[fin] != 0).any() and rv[fin].abs().max() < 2.0 ** -100
+    _assert_pool(kv, ki, rv, ri, exact_ints=True)
+
+
+def _pq_attributes(M, dp, S, book, bits, pq_len, W, cap, rabitq, int8):
+    import ctypes
+
+    from cuvs_tpu_torch.ops import _lib
+
+    out = (ctypes.c_int * 6)()
+    _lib.check(_lib.lib().cuvs_pq_scan_attributes(M, dp, S, book, bits, pq_len, W, cap, rabitq,
+                                                  int8, out), "cuvs_pq_scan_attributes")
+    return dict(zip(("registers", "local_bytes", "slots", "blocks_per_sm", "depth", "family"),
+                    out))
+
+
+# the instantiation each width runs at the main path's shapes (pq_dim 64 x
+# 2 dims; RaBitQ 128 dims): PQ 8-bit (family 1) and RaBitQ 3-bit (2) keep
+# theirs; IVF-PQ's other books and RaBitQ at 1, 2 and 4 bits (3: a table)
+# and RaBitQ at 5-8 bits (4: register entries) run compile-time decode at
+# depth classes 2 and 4, 8 slots a block, no local memory, two blocks an SM
+# but where shared memory holds one (PQ's bf16 table at 7 bits, RaBitQ at
+# 8); classes 8-32 of those widths run the bit buffer (0)
+@pytest.mark.parametrize("mode,width", [("pq", b) for b in range(4, 9)] +
+                         [("rabitq", b) for b in range(1, 9)])
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("cap", [1, 2, 3, 4, 9])
+def test_pq_scan_widths_run_compile_time_instantiations(cuda, mode, width, int8, cap):
+    if mode == "rabitq" and int8:
+        pytest.skip("RaBitQ searches take no int8 table")
+    rabitq = mode == "rabitq"
+    S, bits, pq_len = (128, width, 1) if rabitq else (64, 8, 2)
+    a = _pq_attributes(128, 128, S, 1 << width, bits, pq_len, 1024, cap, int(rabitq), int(int8))
+    assert a["depth"] == (2 if cap <= 2 else 4 if cap <= 4 else 16)
+    if (mode, width) in (("pq", 8), ("rabitq", 3)):
+        family = 2 if rabitq else 1
+    else:
+        family = 0 if cap > 4 else 4 if rabitq and width >= 5 else 3
+    assert a["family"] == family, a
+    if family in (3, 4):
+        assert a["local_bytes"] == 0 and a["slots"] == 8, a
+        one = (mode, width) == ("rabitq", 8) or (mode, width, int8) == ("pq", 7, False)
+        assert a["blocks_per_sm"] == (1 if one else 2), a
+
+
 # 8-bit PQ codes whose count is not a multiple of the 4 threads' word shares
 # (S = 60: 15 words), with tied tables, bf16 and int8
 @pytest.mark.parametrize("int8", [False, True])

@@ -118,18 +118,24 @@ def _assert_pools(jv, ji, tv, ti, cap, int8):
     assert np.mean(ti == ji) > 0.999
 
 
+# IVF-PQ keeps its codes in bytes whatever pq_bits (pack_codes_transposed):
+# the scan reads 8-bit codes with a full book of 2^pq_bits entries
+@pytest.mark.parametrize("pq_bits", [8, 4, 5, 6, 7])
 @pytest.mark.parametrize("ip,use_pen", [(False, False), (True, False), (True, True)])
 @pytest.mark.parametrize("int8", [False, True])
 @pytest.mark.parametrize("cap", [2, 3, 7])
-def test_pq_scan_pool_matches_pallas_pool_pq(ip, use_pen, int8, cap):
-    S, book, pq_len = (8, 16, 2) if cap == 2 else (4, 256, 3)
-    case = pq_scan_case(10 * cap + 2 * ip + use_pen, "pq", 8, S, book, pq_len, use_pen=use_pen,
-                        **_GEOM)
+def test_pq_scan_pool_matches_pallas_pool_pq(ip, use_pen, int8, cap, pq_bits):
+    if pq_bits == 8:  # the 8-bit cases as they were: a book of 16 at cap 2
+        S, book, pq_len = (8, 16, 2) if cap == 2 else (4, 256, 3)
+    else:
+        S, book, pq_len = 8, 1 << pq_bits, 2
+    case = pq_scan_case(10 * cap + 2 * ip + use_pen + 100 * (pq_bits != 8) * pq_bits, "pq", 8,
+                        S, book, pq_len, use_pen=use_pen, **_GEOM)
     jv, ji, tv, ti = _both_scans(case, "pq", 8, book, pq_len, ip, use_pen, int8, cap)
     _assert_pools(jv, ji, tv, ti, cap, int8)
 
 
-@pytest.mark.parametrize("bits", [1, 3, 8])
+@pytest.mark.parametrize("bits", [1, 3, 8, 2, 4, 5])
 @pytest.mark.parametrize("ip", [False, True])
 @pytest.mark.parametrize("cap", [2, 3, 7])
 def test_pq_scan_pool_matches_pallas_pool_rabitq(bits, ip, cap):
