@@ -19,6 +19,7 @@ import torch
 
 from cuvs_tpu_torch.distance.fused_l2_nn import fused_l2_argmin
 from cuvs_tpu_torch.utils.device import as_tensor as _on_device
+from cuvs_tpu_torch.utils.tracing import traced
 
 
 @dataclasses.dataclass(frozen=True)
@@ -123,6 +124,7 @@ def _fit_impl(gen, x, n_clusters, n_meso, n_iters, bal_iters, compute_dtype):
     return _balancing_iters(gen, x, fine_centers, bal_iters, compute_dtype)
 
 
+@traced("kmeans_balanced::fit")
 def fit(x, n_clusters: int, params: Optional[BalancedParams] = None, device=None,
         **kw) -> torch.Tensor:
     """Train a balanced coarse quantizer. Returns centers [n_clusters, d] f32

@@ -16,6 +16,7 @@ from cuvs_tpu_torch.distance import pairwise
 from cuvs_tpu_torch.distance.pairwise import DistanceType
 from cuvs_tpu_torch.neighbors import filters as filt
 from cuvs_tpu_torch.selection.select_k import select_k, topk
+from cuvs_tpu_torch.utils.tracing import traced
 
 # elements of a metric UDF's broadcast [queries, lists, d] block in the coarse
 # search (256 MB of f32)
@@ -50,6 +51,7 @@ def round_window(max_size: int, multiple: int = 128) -> int:
     return max(multiple, -(-int(max_size) // multiple) * multiple)
 
 
+@traced("ivf::coarse_search")
 def coarse_search(queries_f32: torch.Tensor, centers: torch.Tensor, center_norms: torch.Tensor,
                   n_probes: int, metric, compute_dtype=torch.float32) -> torch.Tensor:
     """Top-n_probes closest lists per query -> [nq, n_probes] int32
@@ -79,6 +81,7 @@ def window_gather(sorted_arr: torch.Tensor, starts: torch.Tensor, window: int) -
     return sorted_arr[idx]
 
 
+@traced("ivf::query_major")
 def query_major_topk(lists: SortedLists, probes: torch.Tensor, window: int, k: int, prefilter,
                      qid: torch.Tensor, score: Callable, recall_target=None):
     """The query-major probe loop shared by the IVF scans: per probe column,

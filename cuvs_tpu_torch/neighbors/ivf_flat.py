@@ -27,9 +27,9 @@ from cuvs_tpu_torch.distance import pairwise
 from cuvs_tpu_torch.distance.pairwise import DistanceType, normalize_metric
 from cuvs_tpu_torch.neighbors import filters as filt
 from cuvs_tpu_torch.neighbors import ivf_common as ivf
+from cuvs_tpu_torch.utils import tracing
 from cuvs_tpu_torch.utils.device import as_tensor as _on_device
 from cuvs_tpu_torch.utils.device import resolve_device
-from cuvs_tpu_torch.utils.tracing import traced
 
 _FUSED_METRICS = (DistanceType.L2Expanded, DistanceType.L2SqrtExpanded,
                   DistanceType.InnerProduct)
@@ -176,7 +176,7 @@ def _pack(dataset, ids, labels, centers, metric, n_lists, adaptive, storage_dtyp
                  adaptive_centers=adaptive)
 
 
-@traced("ivf_flat::build")
+@tracing.traced("ivf_flat::build")
 def build(dataset, params: Optional[IndexParams] = None, device=None, **kw) -> Index:
     """Train the coarse quantizer and populate the lists (ivf_flat_build.cuh:394)."""
     if params is None:
@@ -426,7 +426,7 @@ def _search_impl(index: Index, queries, prefilter, k, n_probes, metric, compute_
     return ivf.postprocess_distances(best_v, metric), best_i
 
 
-@traced("ivf_flat::search")
+@tracing.traced("ivf_flat::search")
 def search(index: Index, queries, k: int, params: Optional[SearchParams] = None,
            prefilter: Optional[filt.Prefilter] = None, **kw) -> Tuple[torch.Tensor, torch.Tensor]:
     """ANN search. Returns (distances [nq,k], neighbors [nq,k] global ids int32)."""
@@ -437,6 +437,7 @@ def search(index: Index, queries, k: int, params: Optional[SearchParams] = None,
     queries = torch.as_tensor(queries, device=index.device)
     n_probes = min(params.n_probes, index.n_lists)
     nq = queries.shape[0]
+    tracing.count("queries", nq)
     algo = params.scan_algo
     metric = index.metric
     if algo not in ("auto", "query_major", "cluster_major", "fused"):

@@ -33,9 +33,9 @@ from cuvs_tpu_torch.distance import pairwise
 from cuvs_tpu_torch.distance.pairwise import DistanceType, normalize_metric
 from cuvs_tpu_torch.neighbors import filters as filt
 from cuvs_tpu_torch.neighbors import ivf_common as ivf
+from cuvs_tpu_torch.utils import tracing
 from cuvs_tpu_torch.utils.device import as_tensor as _on_device
 from cuvs_tpu_torch.utils.device import resolve_device
-from cuvs_tpu_torch.utils.tracing import traced
 
 # transient bound for the chunked residual pass in build() (tests shrink it
 # to exercise the chunked path at toy sizes)
@@ -332,7 +332,7 @@ def _sorted_arrays(codes_sorted: torch.Tensor, window: int, pq_centers, pq_bits:
             ivf_scan.decoded_norms(codes_sorted, pq_centers, window, window + 128))
 
 
-@traced("ivf_pq::build")
+@tracing.traced("ivf_pq::build")
 def build(dataset, params: Optional[IndexParams] = None, device=None, **kw) -> Index:
     """Train the coarse quantizer and the codebooks, encode and sort the rows."""
     if params is None:
@@ -354,47 +354,55 @@ def build(dataset, params: Optional[IndexParams] = None, device=None, **kw) -> I
         kmeans_balanced.BalancedParams(n_clusters=n_lists, n_iters=params.kmeans_n_iters,
                                        trainset_fraction=params.kmeans_trainset_fraction,
                                        seed=params.seed))
-    labels = kmeans_balanced.predict(xf, centers)
-    rotation = _make_rotation(gen, dim, rot_dim, params.force_random_rotation)
-    centers_rot = centers @ rotation.T
-    res = _residuals(xf, centers, labels, rotation)
-    del xf
+    with tracing.span("ivf_pq::assign"):
+        labels = kmeans_balanced.predict(xf, centers)
+        rotation = _make_rotation(gen, dim, rot_dim, params.force_random_rotation)
+        centers_rot = centers @ rotation.T
+        res = _residuals(xf, centers, labels, rotation)
+        del xf
+        window = ivf.round_window(int(torch.bincount(labels.long(), minlength=n_lists).max()))
+        order, lists = ivf.sort_by_label(labels, n_lists, pad=window)
 
-    window = ivf.round_window(int(torch.bincount(labels.long(), minlength=n_lists).max()))
-    order, lists = ivf.sort_by_label(labels, n_lists, pad=window)
     if params.codebook_gen == "per_cluster":
-        sorted_res = torch.cat([res[order], res.new_zeros((window, rot_dim))]).reshape(
-            -1, pq_dim, pq_len)
-        train_w = min(window, max(book, params.max_train_points_per_pq_code * book
-                                  // max(pq_dim, 1)))
-        init = _init_indices_per_cluster(gen, lists.sizes, train_w, pq_dim, book)
-        pq_centers = _train_codebooks_per_cluster(sorted_res, lists.offsets, lists.sizes, init,
-                                                  25, train_w)
-        del sorted_res
-        codes = _encode_per_cluster(res, labels, pq_centers)
+        with tracing.span("ivf_pq::codebooks"):
+            sorted_res = torch.cat([res[order], res.new_zeros((window, rot_dim))]).reshape(
+                -1, pq_dim, pq_len)
+            train_w = min(window, max(book, params.max_train_points_per_pq_code * book
+                                      // max(pq_dim, 1)))
+            init = _init_indices_per_cluster(gen, lists.sizes, train_w, pq_dim, book)
+            pq_centers = _train_codebooks_per_cluster(sorted_res, lists.offsets, lists.sizes,
+                                                      init, 25, train_w)
+            del sorted_res
+        with tracing.span("ivf_pq::encode"):
+            codes = _encode_per_cluster(res, labels, pq_centers)
     else:
-        # codebooks from a subsample (max_train_points_per_pq_code * book rows)
-        n_train = min(n, params.max_train_points_per_pq_code * book)
-        train_idx = torch.randperm(n, generator=gen, device=dev)[:n_train]
-        res_train = res[train_idx].reshape(n_train, pq_dim, pq_len).transpose(0, 1).contiguous()
-        pq_centers = _train_codebooks(res_train, _init_indices(gen, pq_dim, n_train, book), 25)
-        codes = _encode(res, pq_centers)
+        with tracing.span("ivf_pq::codebooks"):
+            # codebooks from a subsample (max_train_points_per_pq_code * book rows)
+            n_train = min(n, params.max_train_points_per_pq_code * book)
+            train_idx = torch.randperm(n, generator=gen, device=dev)[:n_train]
+            res_train = res[train_idx].reshape(n_train, pq_dim, pq_len).transpose(
+                0, 1).contiguous()
+            pq_centers = _train_codebooks(res_train, _init_indices(gen, pq_dim, n_train, book),
+                                          25)
+        with tracing.span("ivf_pq::encode"):
+            codes = _encode(res, pq_centers)
     del res
 
-    if not params.add_data_on_build:
-        # reference semantics: train the quantizer and codebooks only
-        codes, n = codes[:0], 0
-        window = ivf.round_window(0)
-        order, lists = ivf.sort_by_label(labels[:0], n_lists, pad=window)
-    sorted_codes, serving_codes, serving_norms = _sorted_arrays(
-        codes[order], window, pq_centers, params.pq_bits,
-        params.codebook_gen == "per_subspace" and n > 0)
-    return Index(centers=centers, center_norms=pairwise.row_norms(centers),
-                 centers_rot=centers_rot, rotation=rotation, pq_centers=pq_centers,
-                 sorted_codes=sorted_codes, lists=lists, metric=params.metric, window=window,
-                 n_rows=int(n), pq_bits=params.pq_bits, codebook_gen=params.codebook_gen,
-                 pq_dim_static=int(pq_dim), sorted_codes_t=serving_codes,
-                 sorted_code_norms=serving_norms)
+    with tracing.span("ivf_pq::pack"):
+        if not params.add_data_on_build:
+            # reference semantics: train the quantizer and codebooks only
+            codes, n = codes[:0], 0
+            window = ivf.round_window(0)
+            order, lists = ivf.sort_by_label(labels[:0], n_lists, pad=window)
+        sorted_codes, serving_codes, serving_norms = _sorted_arrays(
+            codes[order], window, pq_centers, params.pq_bits,
+            params.codebook_gen == "per_subspace" and n > 0)
+        return Index(centers=centers, center_norms=pairwise.row_norms(centers),
+                     centers_rot=centers_rot, rotation=rotation, pq_centers=pq_centers,
+                     sorted_codes=sorted_codes, lists=lists, metric=params.metric,
+                     window=window, n_rows=int(n), pq_bits=params.pq_bits,
+                     codebook_gen=params.codebook_gen, pq_dim_static=int(pq_dim),
+                     sorted_codes_t=serving_codes, sorted_code_norms=serving_norms)
 
 
 def _gather_codes(codes: torch.Tensor, order: torch.Tensor, window: int, chunk: int = 1 << 20
@@ -607,7 +615,7 @@ def _search_impl(index: Index, queries, prefilter, k: int, n_probes: int, metric
     return ivf.postprocess_distances(bv, metric), torch.cat(out_i)
 
 
-@traced("ivf_pq::search")
+@tracing.traced("ivf_pq::search")
 def search(index: Index, queries, k: int, params: Optional[SearchParams] = None,
            prefilter: Optional[filt.Prefilter] = None, **kw) -> Tuple[torch.Tensor, torch.Tensor]:
     """ANN search over PQ codes (approximate distances). Returns (distances
@@ -619,6 +627,7 @@ def search(index: Index, queries, k: int, params: Optional[SearchParams] = None,
         prefilter = filt.no_filter()
     queries = torch.as_tensor(queries, device=index.device)
     nq = queries.shape[0]
+    tracing.count("queries", nq)
     n_probes = min(params.n_probes, index.n_lists)
     algo = params.scan_algo
     if algo not in ("auto", "query_major", "cluster_major", "fused"):

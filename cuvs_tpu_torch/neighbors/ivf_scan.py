@@ -29,6 +29,7 @@ from cuvs_tpu_torch.distance.pairwise import DistanceType
 from cuvs_tpu_torch.neighbors import filters as filt
 from cuvs_tpu_torch.neighbors import ivf_common as ivf
 from cuvs_tpu_torch.selection.select_k import topk
+from cuvs_tpu_torch.utils import tracing
 
 
 def _round_window_up(window: int, n_pad: int) -> int:
@@ -149,28 +150,32 @@ def cluster_major_scan_fused(sorted_data, sorted_norms, lists: ivf.SortedLists, 
     bitset_mode = flt is not None and flt.kind == "bitset"
     post_mode = flt is not None and not bitset_mode
     ip_kernel = ip
-    if bitset_mode:
-        # poison filtered rows' penalty; IP has no norm term, so it runs the
-        # L2 penalty path with zero norms and order values -2 q.y, halved below
-        sorted_norms = _poisoned(flt, lists, sorted_norms, zeros=ip)
-        ip_kernel = False
+    with tracing.span("ivf::group"):
+        if bitset_mode:
+            # poison filtered rows' penalty; IP has no norm term, so it runs the
+            # L2 penalty path with zero norms and order values -2 q.y, halved below
+            sorted_norms = _poisoned(flt, lists, sorted_norms, zeros=ip)
+            ip_kernel = False
 
-    tile_cluster, qidx, pair_tile, pair_slot = group_pairs_tiled(probe_ids, n_lists, m_tile,
-                                                                 n_tiles)
-    _, al, lo, sizes = _tile_windows(tile_cluster, lists, n_pad, W_k)
+        tile_cluster, qidx, pair_tile, pair_slot = group_pairs_tiled(probe_ids, n_lists, m_tile,
+                                                                     n_tiles)
+        _, al, lo, sizes = _tile_windows(tile_cluster, lists, n_pad, W_k)
 
-    qc, _, scale2 = _flat_operands(sorted_data, queries_f32, metric, compute_dtype, q_scale)
-    int8_mode = scale2 is not None
-    if not int8_mode:
-        scale2 = torch.ones((), dtype=torch.float32, device=qc.device)
+        qc, _, scale2 = _flat_operands(sorted_data, queries_f32, metric, compute_dtype, q_scale)
+        int8_mode = scale2 is not None
+        if not int8_mode:
+            scale2 = torch.ones((), dtype=torch.float32, device=qc.device)
     # strided lane bins: every window exposes 128 bins, so cap 2 covers
     # k <= ~32 with negligible collision loss
     cap = int(bin_cap) if bin_cap else int(min(32, max(2, -(-k // 32))))
-    out_v, out_i = ops_ivf_scan.fused_ivf_scan(
-        sorted_data, sorted_norms, qc, qidx, al, lo, sizes, scale2, W=W_k, m_tile=m_tile,
-        ip=ip_kernel, int8_mode=int8_mode, cap=cap)
-    return _flat_pool(out_v, out_i, pair_tile, pair_slot, al, lists, queries_f32, k, metric, ip,
-                      cap, recall_target, flt if post_mode else None, bitset_mode, overfetch)
+    with tracing.span("ivf::scan"):
+        out_v, out_i = ops_ivf_scan.fused_ivf_scan(
+            sorted_data, sorted_norms, qc, qidx, al, lo, sizes, scale2, W=W_k, m_tile=m_tile,
+            ip=ip_kernel, int8_mode=int8_mode, cap=cap)
+    with tracing.span("ivf::merge"):
+        return _flat_pool(out_v, out_i, pair_tile, pair_slot, al, lists, queries_f32, k, metric,
+                          ip, cap, recall_target, flt if post_mode else None, bitset_mode,
+                          overfetch)
 
 
 def _flat_pool(out_v, out_i, pair_tile, pair_slot, al, lists: ivf.SortedLists, queries_f32,
@@ -183,6 +188,7 @@ def _flat_pool(out_v, out_i, pair_tile, pair_slot, al, lists: ivf.SortedLists, q
     nq, p = pair_tile.shape
     post_mode = post_filter is not None
     Fc = cap * 128
+    tracing.count("merge_rows", nq * p * Fc)
 
     # sentinel tile row for dropped pairs (cannot occur at the default bound)
     out_v = torch.cat([out_v, torch.full((1,) + out_v.shape[1:], float("inf"),
@@ -305,31 +311,34 @@ def cluster_major_scan_pq_fused(codes_t, sorted_norms, centers_rot, pq_centers, 
     ip = metric == DistanceType.InnerProduct
     n_pad = codes_t.shape[1]
     W_k = _round_window_up(window, n_pad)
-    tile_cluster, qidx, pair_tile, pair_slot = group_pairs_tiled(probe_ids, n_lists, m_tile,
-                                                                 n_tiles)
-    safe_c, al, lo, sizes = _tile_windows(tile_cluster, lists, n_pad, W_k)
-    qrot, qrot_p, centers_tile, dp = _rotated_operands(queries_f32, rotation, centers_rot, safe_c)
-    cb_t = block_diag_codebook(pq_centers, dp)
-
     flt = None if (prefilter is None or prefilter.is_none) else prefilter
     bitset_mode = flt is not None and flt.kind == "bitset"
     use_pen = bitset_mode and ip
-    if bitset_mode:
-        # IP scoring has no norm term: the norm channel carries a 0/+inf
-        # filter penalty instead (the kernel's use_pen path)
-        sorted_norms = _poisoned(flt, lists, sorted_norms, zeros=ip)
+    with tracing.span("ivf::group"):
+        tile_cluster, qidx, pair_tile, pair_slot = group_pairs_tiled(probe_ids, n_lists, m_tile,
+                                                                     n_tiles)
+        safe_c, al, lo, sizes = _tile_windows(tile_cluster, lists, n_pad, W_k)
+        qrot, qrot_p, centers_tile, dp = _rotated_operands(queries_f32, rotation, centers_rot,
+                                                           safe_c)
+        cb_t = block_diag_codebook(pq_centers, dp)
+        if bitset_mode:
+            # IP scoring has no norm term: the norm channel carries a 0/+inf
+            # filter penalty instead (the kernel's use_pen path)
+            sorted_norms = _poisoned(flt, lists, sorted_norms, zeros=ip)
 
     cap = int(bin_cap) if bin_cap else int(min(32, max(2, -(-k // 32))))
-    out_v, out_i = ops_ivf_scan.fused_pq_scan(
-        codes_t, sorted_norms, qrot_p, cb_t, centers_tile, qidx, al, lo, sizes, W=W_k,
-        m_tile=m_tile, ip=ip, cap=cap, book=book, use_pen=use_pen,
-        int8_mode=fused_dtype == "int8", pq_len=pq_centers.shape[2])
-    # per-(query, probe) cluster term: L2 adds |Rq - c_rot|^2, IP -q.c
-    offs = _cluster_offsets(qrot, centers_rot, probe_ids, ip)
-    return _pool_with_offsets(out_v, out_i, pair_tile, pair_slot, al, lists, offs, k, metric, ip,
-                              cap, recall_target,
-                              post_filter=flt if (flt is not None and not bitset_mode) else None,
-                              overfetch=overfetch)
+    with tracing.span("ivf::scan"):
+        out_v, out_i = ops_ivf_scan.fused_pq_scan(
+            codes_t, sorted_norms, qrot_p, cb_t, centers_tile, qidx, al, lo, sizes, W=W_k,
+            m_tile=m_tile, ip=ip, cap=cap, book=book, use_pen=use_pen,
+            int8_mode=fused_dtype == "int8", pq_len=pq_centers.shape[2])
+    with tracing.span("ivf::merge"):
+        # per-(query, probe) cluster term: L2 adds |Rq - c_rot|^2, IP -q.c
+        offs = _cluster_offsets(qrot, centers_rot, probe_ids, ip)
+        return _pool_with_offsets(
+            out_v, out_i, pair_tile, pair_slot, al, lists, offs, k, metric, ip, cap,
+            recall_target, post_filter=flt if (flt is not None and not bitset_mode) else None,
+            overfetch=overfetch)
 
 
 def _cluster_offsets(qrot, centers_rot, probe_ids, ip: bool) -> torch.Tensor:
@@ -356,6 +365,7 @@ def _pool_with_offsets(out_v, out_i, pair_tile, pair_slot, al, lists: ivf.Sorted
     deep pool before the final cut."""
     nq, p = pair_tile.shape
     Fc = cap * 128
+    tracing.count("merge_rows", nq * p * Fc)
     out_v = torch.cat([out_v, torch.full((1,) + out_v.shape[1:], float("inf"),
                                          device=out_v.device)])
     out_i = torch.cat([out_i, torch.zeros((1,) + out_i.shape[1:], dtype=out_i.dtype,
@@ -413,29 +423,32 @@ def cluster_major_scan_rabitq_fused(codes_t, sorted_fa, sorted_fr, centers_rot, 
     n_pad = codes_t.shape[1]
     W_k = _round_window_up(window, n_pad)
     book = 1 << bits
-    tile_cluster, qidx, pair_tile, pair_slot = group_pairs_tiled(probe_ids, n_lists, m_tile,
-                                                                 n_tiles)
-    safe_c, al, lo, sizes = _tile_windows(tile_cluster, lists, n_pad, W_k)
-    qrot, qrot_p, centers_tile, dp = _rotated_operands(queries_f32, rotation, centers_rot, safe_c)
-    kb = -((1 << bits) - 1) / 2.0
-    levels = torch.arange(book, dtype=torch.float32, device=qrot.device) + kb
-    cb_t = block_diag_codebook(levels[None, :, None].expand(rot_dim, book, 1), dp)
-
     flt = None if (prefilter is None or prefilter.is_none) else prefilter
     bitset_mode = flt is not None and flt.kind == "bitset"
-    if bitset_mode:  # -(fa + fr*dots) is -inf on filtered rows whatever the metric
-        sorted_fa = _poisoned(flt, lists, sorted_fa, zeros=False)
+    with tracing.span("ivf::group"):
+        tile_cluster, qidx, pair_tile, pair_slot = group_pairs_tiled(probe_ids, n_lists, m_tile,
+                                                                     n_tiles)
+        safe_c, al, lo, sizes = _tile_windows(tile_cluster, lists, n_pad, W_k)
+        qrot, qrot_p, centers_tile, dp = _rotated_operands(queries_f32, rotation, centers_rot,
+                                                           safe_c)
+        kb = -((1 << bits) - 1) / 2.0
+        levels = torch.arange(book, dtype=torch.float32, device=qrot.device) + kb
+        cb_t = block_diag_codebook(levels[None, :, None].expand(rot_dim, book, 1), dp)
+        if bitset_mode:  # -(fa + fr*dots) is -inf on filtered rows whatever the metric
+            sorted_fa = _poisoned(flt, lists, sorted_fa, zeros=False)
 
     cap = int(bin_cap) if bin_cap else int(min(32, max(2, -(-k // 32))))
-    out_v, out_i = ops_ivf_scan.fused_pq_scan(
-        codes_t, sorted_fa, qrot_p, cb_t, centers_tile, qidx, al, lo, sizes, W=W_k,
-        m_tile=m_tile, ip=ip, cap=cap, book=book, bits=bits, mode="rabitq", sorted_fr=sorted_fr,
-        pq_len=1)
-    offs = _cluster_offsets(qrot, centers_rot, probe_ids, ip)
-    return _pool_with_offsets(out_v, out_i, pair_tile, pair_slot, al, lists, offs, k, metric, ip,
-                              cap, recall_target,
-                              post_filter=flt if (flt is not None and not bitset_mode) else None,
-                              overfetch=overfetch)
+    with tracing.span("ivf::scan"):
+        out_v, out_i = ops_ivf_scan.fused_pq_scan(
+            codes_t, sorted_fa, qrot_p, cb_t, centers_tile, qidx, al, lo, sizes, W=W_k,
+            m_tile=m_tile, ip=ip, cap=cap, book=book, bits=bits, mode="rabitq",
+            sorted_fr=sorted_fr, pq_len=1)
+    with tracing.span("ivf::merge"):
+        offs = _cluster_offsets(qrot, centers_rot, probe_ids, ip)
+        return _pool_with_offsets(
+            out_v, out_i, pair_tile, pair_slot, al, lists, offs, k, metric, ip, cap,
+            recall_target, post_filter=flt if (flt is not None and not bitset_mode) else None,
+            overfetch=overfetch)
 
 
 # ---------------------------------------------------------------------------
@@ -524,6 +537,7 @@ def _final_pool(tv, ti, rows, cols, k: int, metric):
     then the exact top-k over the [nq, p * kk] pool."""
     nq, p = rows.shape
     kk = tv.shape[2]
+    tracing.count("merge_rows", nq * p * kk)
     pv = tv[rows.long(), cols.long()].reshape(nq, p * kk)
     pi = ti[rows.long(), cols.long()].reshape(nq, p * kk)
     fv, fl = topk(pv, k, True)
@@ -543,19 +557,23 @@ def cluster_major_scan(sorted_data, sorted_norms, lists: ivf.SortedLists, querie
     exact int32 dots rescaled by q_scale^2; norms stay exact f32."""
     n_lists = lists.offsets.shape[0]
     M = max_per_cluster
-    qc_all, qn, scale2 = _flat_operands(sorted_data, queries_f32, metric, compute_dtype, q_scale)
-    qidx, pair_slot = group_pairs(probe_ids, n_lists, M)
+    with tracing.span("ivf::group"):
+        qc_all, qn, scale2 = _flat_operands(sorted_data, queries_f32, metric, compute_dtype,
+                                            q_scale)
+        qidx, pair_slot = group_pairs(probe_ids, n_lists, M)
     kk = min(k, window)
     cl_ids = torch.arange(n_lists, device=queries_f32.device)
-    parts = [_flat_chunk(sorted_data, sorted_norms, lists, qidx[c0:c0 + cluster_chunk],
-                         cl_ids[c0:c0 + cluster_chunk], qc_all, qn, queries_f32, scale2, q_scale,
-                         metric, window, compute_dtype, prefilter, kk, recall_target)
-             for c0 in range(0, n_lists, cluster_chunk)]
-    # one extra slot column: dropped pairs (pair_slot == M) land there
-    tv = torch.nn.functional.pad(torch.cat([v for v, _ in parts]), (0, 0, 0, 1),
-                                 value=float("inf"))
-    ti = torch.nn.functional.pad(torch.cat([i for _, i in parts]), (0, 0, 0, 1))
-    return _final_pool(tv, ti, probe_ids, pair_slot, k, metric)
+    with tracing.span("ivf::scan"):
+        parts = [_flat_chunk(sorted_data, sorted_norms, lists, qidx[c0:c0 + cluster_chunk],
+                             cl_ids[c0:c0 + cluster_chunk], qc_all, qn, queries_f32, scale2,
+                             q_scale, metric, window, compute_dtype, prefilter, kk, recall_target)
+                 for c0 in range(0, n_lists, cluster_chunk)]
+    with tracing.span("ivf::merge"):
+        # one extra slot column: dropped pairs (pair_slot == M) land there
+        tv = torch.nn.functional.pad(torch.cat([v for v, _ in parts]), (0, 0, 0, 1),
+                                     value=float("inf"))
+        ti = torch.nn.functional.pad(torch.cat([i for _, i in parts]), (0, 0, 0, 1))
+        return _final_pool(tv, ti, probe_ids, pair_slot, k, metric)
 
 
 def cluster_major_scan_tiled(sorted_data, sorted_norms, lists: ivf.SortedLists, queries_f32,
@@ -571,19 +589,23 @@ def cluster_major_scan_tiled(sorted_data, sorted_norms, lists: ivf.SortedLists, 
     builds [C, M, W, d] at once: ``ivf_flat.search`` sizes ``cluster_chunk``
     for that block. ``q_scale`` set: int8 rows."""
     n_lists = lists.offsets.shape[0]
-    qc_all, qn, scale2 = _flat_operands(sorted_data, queries_f32, metric, compute_dtype, q_scale)
-    tile_cluster, qidx, pair_tile, pair_slot = group_pairs_tiled(probe_ids, n_lists, m_tile,
-                                                                 n_tiles)
+    with tracing.span("ivf::group"):
+        qc_all, qn, scale2 = _flat_operands(sorted_data, queries_f32, metric, compute_dtype,
+                                            q_scale)
+        tile_cluster, qidx, pair_tile, pair_slot = group_pairs_tiled(probe_ids, n_lists, m_tile,
+                                                                     n_tiles)
     kk = min(k, window)
-    parts = [_flat_chunk(sorted_data, sorted_norms, lists, qidx[t0:t0 + cluster_chunk],
-                         tile_cluster[t0:t0 + cluster_chunk], qc_all, qn, queries_f32, scale2,
-                         q_scale, metric, window, compute_dtype, prefilter, kk, recall_target)
-             for t0 in range(0, n_tiles, cluster_chunk)]
-    # one extra tile row: dropped pairs (pair_tile == n_tiles) land there
-    tv = torch.nn.functional.pad(torch.cat([v for v, _ in parts]), (0, 0, 0, 0, 0, 1),
-                                 value=float("inf"))
-    ti = torch.nn.functional.pad(torch.cat([i for _, i in parts]), (0, 0, 0, 0, 0, 1))
-    return _final_pool(tv, ti, pair_tile, pair_slot, k, metric)
+    with tracing.span("ivf::scan"):
+        parts = [_flat_chunk(sorted_data, sorted_norms, lists, qidx[t0:t0 + cluster_chunk],
+                             tile_cluster[t0:t0 + cluster_chunk], qc_all, qn, queries_f32, scale2,
+                             q_scale, metric, window, compute_dtype, prefilter, kk, recall_target)
+                 for t0 in range(0, n_tiles, cluster_chunk)]
+    with tracing.span("ivf::merge"):
+        # one extra tile row: dropped pairs (pair_tile == n_tiles) land there
+        tv = torch.nn.functional.pad(torch.cat([v for v, _ in parts]), (0, 0, 0, 0, 0, 1),
+                                     value=float("inf"))
+        ti = torch.nn.functional.pad(torch.cat([i for _, i in parts]), (0, 0, 0, 0, 0, 1))
+        return _final_pool(tv, ti, pair_tile, pair_slot, k, metric)
 
 
 def _bin_rounds(order, ids_w, cap: int):
@@ -628,38 +650,41 @@ def cluster_major_scan_pq(sorted_codes, centers, centers_rot, pq_centers, rotati
         pq_dim, book, pq_len = pq_centers.shape
     rot_dim = pq_dim * pq_len
     dev = queries_f32.device
-    qidx, pair_slot = group_pairs(probe_ids, n_lists, M)
-    qrot = (queries_f32 @ rotation.T).to(compute_dtype)
-    qn = (queries_f32 * queries_f32).sum(1)
+    with tracing.span("ivf::group"):
+        qidx, pair_slot = group_pairs(probe_ids, n_lists, M)
+        qrot = (queries_f32 @ rotation.T).to(compute_dtype)
+        qn = (queries_f32 * queries_f32).sum(1)
     F = window // 128
     kk = min(bin_cap, 128) * F if bin_cap else min(k, window)
     sub_ids = torch.arange(pq_dim, device=dev)
     cl_ids = torch.arange(n_lists, device=dev)
-    parts = []
-    for c0 in range(0, n_lists, cluster_chunk):
-        qi = qidx[c0:c0 + cluster_chunk]
-        safe_c, starts, ids_w, lab_w = _windows(lists, cl_ids[c0:c0 + cluster_chunk], window)
-        C = qi.shape[0]
-        words_w = ivf.window_gather(sorted_codes, starts, window)  # [C, W, words]
-        codes_w = bitpack.unpack(words_w, pq_bits, pq_dim).long()  # [C, W, S]
-        if per_cluster:
-            recon = pq_centers[safe_c][torch.arange(C, device=dev)[:, None, None], codes_w]
-        else:
-            recon = pq_centers[sub_ids[None, None, :], codes_w]  # [C, W, S, pq_len]
-        y = recon.reshape(C, window, rot_dim) + centers_rot[safe_c][:, None, :]
-        yn = (y * y).sum(2)
-        safe_q = torch.clamp_min(qi.long(), 0)
-        dots = torch.bmm(qrot[safe_q].float(), y.to(compute_dtype).float().transpose(1, 2))
-        if metric == DistanceType.InnerProduct:
-            order = -dots
-        else:
-            order = torch.clamp_min(qn[safe_q][:, :, None] + yn[:, None, :] - 2.0 * dots, 0.0)
-        order = _masked(order, qi, safe_q, safe_c, ids_w, lab_w, prefilter)
-        if bin_cap:
-            parts.append(_bin_rounds(order, ids_w, min(bin_cap, 128)))
-        else:
-            parts.append(_row_topk(order, ids_w, kk, recall_target))
-    tv = torch.nn.functional.pad(torch.cat([v for v, _ in parts]), (0, 0, 0, 1),
-                                 value=float("inf"))
-    ti = torch.nn.functional.pad(torch.cat([i for _, i in parts]), (0, 0, 0, 1))
-    return _final_pool(tv, ti, probe_ids, pair_slot, k, metric)
+    with tracing.span("ivf::scan"):
+        parts = []
+        for c0 in range(0, n_lists, cluster_chunk):
+            qi = qidx[c0:c0 + cluster_chunk]
+            safe_c, starts, ids_w, lab_w = _windows(lists, cl_ids[c0:c0 + cluster_chunk], window)
+            C = qi.shape[0]
+            words_w = ivf.window_gather(sorted_codes, starts, window)  # [C, W, words]
+            codes_w = bitpack.unpack(words_w, pq_bits, pq_dim).long()  # [C, W, S]
+            if per_cluster:
+                recon = pq_centers[safe_c][torch.arange(C, device=dev)[:, None, None], codes_w]
+            else:
+                recon = pq_centers[sub_ids[None, None, :], codes_w]  # [C, W, S, pq_len]
+            y = recon.reshape(C, window, rot_dim) + centers_rot[safe_c][:, None, :]
+            yn = (y * y).sum(2)
+            safe_q = torch.clamp_min(qi.long(), 0)
+            dots = torch.bmm(qrot[safe_q].float(), y.to(compute_dtype).float().transpose(1, 2))
+            if metric == DistanceType.InnerProduct:
+                order = -dots
+            else:
+                order = torch.clamp_min(qn[safe_q][:, :, None] + yn[:, None, :] - 2.0 * dots, 0.0)
+            order = _masked(order, qi, safe_q, safe_c, ids_w, lab_w, prefilter)
+            if bin_cap:
+                parts.append(_bin_rounds(order, ids_w, min(bin_cap, 128)))
+            else:
+                parts.append(_row_topk(order, ids_w, kk, recall_target))
+    with tracing.span("ivf::merge"):
+        tv = torch.nn.functional.pad(torch.cat([v for v, _ in parts]), (0, 0, 0, 1),
+                                     value=float("inf"))
+        ti = torch.nn.functional.pad(torch.cat([i for _, i in parts]), (0, 0, 0, 1))
+        return _final_pool(tv, ti, probe_ids, pair_slot, k, metric)

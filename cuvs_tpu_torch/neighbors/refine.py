@@ -18,6 +18,7 @@ from cuvs_tpu_torch.distance.pairwise import DistanceType, normalize_metric
 from cuvs_tpu_torch.neighbors import ivf_common as ivf
 from cuvs_tpu_torch.selection.select_k import topk
 from cuvs_tpu_torch.utils.device import as_tensor as _on_device
+from cuvs_tpu_torch.utils.tracing import traced
 
 
 def _refine_impl(dataset, queries, candidates, k, metric, compute_dtype, qchunk):
@@ -32,6 +33,7 @@ def _refine_impl(dataset, queries, candidates, k, metric, compute_dtype, qchunk)
     return torch.cat(out_v), torch.cat(out_i)
 
 
+@traced("refine::refine")
 def refine(dataset, queries, candidates, k: int, metric="sqeuclidean",
            compute_dtype=torch.float32, query_chunk: int = 2048, device=None
            ) -> Tuple[torch.Tensor, torch.Tensor]:

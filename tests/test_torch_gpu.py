@@ -1171,6 +1171,49 @@ def test_profiler_trace_names_a_port_kernel(cuda, tmp_path):
     assert any("bf_topk_exact" in name for name in kernels), sorted(kernels)
 
 
+@pytest.mark.parametrize("family,kernel", [("ivf_pq", "pq_scan"), ("ivf_flat", "ivf_scan")])
+def test_stage_spans_agree_with_the_device_trace(cuda, family, kernel):
+    """A fused search under a capture: every stage span has a stream time,
+    the stages add up to the call's, and the scan's covers its kernel's
+    device time in the same capture."""
+    from cuvs_tpu_torch.neighbors import ivf_flat, ivf_pq
+    from cuvs_tpu_torch.utils import tracing
+
+    x, q = _blobs(64, 100_000, 128), _blobs(65, 4096, 128)
+    xt, qt = torch.from_numpy(x).to(cuda), torch.from_numpy(q).to(cuda)
+    if family == "ivf_pq":
+        index = ivf_pq.build(xt, ivf_pq.IndexParams(n_lists=256, pq_dim=64))
+        params = ivf_pq.SearchParams(n_probes=32, scan_algo="fused")
+    else:
+        index = ivf_flat.build(xt, ivf_flat.IndexParams(n_lists=256))
+        params = ivf_flat.SearchParams(n_probes=32, scan_algo="fused")
+    module = ivf_pq if family == "ivf_pq" else ivf_flat
+    module.search(index, qt, 20, params)  # warm-up
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    prof = torch.profiler.profile(activities=acts, acc_events=True)
+    tracing.clear()
+    prof.start()
+    module.search(index, qt, 20, params)
+    torch.cuda.synchronize()
+    prof.stop()
+    entry, *stages = tracing.spans()
+    assert entry.name == f"{family}::search" and entry.counts == {"queries": 4096}
+    assert [s.name for s in stages] == ["ivf::coarse_search", "ivf::group", "ivf::scan",
+                                        "ivf::merge"]
+    assert all(s.stream_ms is not None and s.stream_ms > 0 for s in [entry, *stages])
+    total = sum(s.stream_ms for s in stages)
+    assert 0.9 * entry.stream_ms <= total <= entry.stream_ms * 1.0001, (total, entry)
+    # the device's copies of the spans' ranges are annotations, not kernels
+    ranges, dev = {s.name for s in [entry, *stages]}, torch.autograd.DeviceType.CUDA
+    kernel_ms = sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
+                    if e.device_type() == dev and kernel in e.name()
+                    and e.name() not in ranges) / 1e6
+    assert 0 < kernel_ms <= stages[2].stream_ms, (kernel_ms, stages[2])
+    assert stages[3].counts == {"merge_rows": 4096 * 32 * 2 * 128}
+    tracing.clear()
+
+
 def test_hnsw_cpu_builds_from_the_port_host_library():
     from cuvs_tpu_torch.bench.competitors import HnswCpu
     from cuvs_tpu_torch.io import native
