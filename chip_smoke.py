@@ -87,8 +87,9 @@ same shape): 1,000,000 x 128 f32, 4096 queries, k = 10.
      itopk 64 (recall and QPS printed, no floor);
  20. CAGRA built through IVF-PQ + refine (96 -> 64, of cagra.yaml ``base``:
      the degree of phase 19's graph, so the two builds compare): one fused
-     ``pq_scan`` launch per 4096-row batch of the self-search (k = 194,
-     cap 7: recorded as its own variant), the graph's split per batch (the
+     ``pq_scan`` launch and one ``pool_topk`` launch (fetch 194) per 4096-row
+     batch of the self-search (k = 194, cap 7: each recorded as its own
+     variant), the graph's split per batch (the
      kernel against coarse search, grouping, the pool merge and refine,
      CUDA-event times summed over the build), the knn graph's recall@96 on
      phase 18's sampled rows,
@@ -213,7 +214,7 @@ same shape): 1,000,000 x 128 f32, 4096 queries, k = 10.
      the approximate kernel): the row counts the hooks leave, each CSV read
      back with the reference's seven columns, recall not falling (slack
      0.005) as n_probes grows within a build, the exact row at least 0.999,
-     the 3-bit 50-probe RaBitQ row within 0.02 of phase 7's, and all four
+     the 3-bit 50-probe RaBitQ row within 0.02 of phase 7's, and all five
      kernels launched by the CLI. The CLI's calls are recorded as variants
      of their own (``-cli``: the f32 IVF-Flat scan, RaBitQ at 1, 3, 5 and 8
      bits, ...), so each is held against its plain version with the others.
@@ -225,7 +226,7 @@ same shape): 1,000,000 x 128 f32, 4096 queries, k = 10.
      median search's device time per kernel name.
 
 Each of phases 40-48 prints its seconds and its device-memory peak above what
-is held, beside the card's name and power limit; they launch none of the four
+is held, beside the card's name and power limit; they launch none of the five
 kernels in this process (checked), phase 48's driver launches the exact one in
 its own.
 
@@ -238,11 +239,13 @@ Launch counters are zeroed just before that run and read just after; every
 kernel of the path must have launched. Each variant's line carries its own
 count of wrapper calls in that run (each one launch on the card). Then each kernel is held against its
 plain PyTorch version on the inputs the path gave it, once per variant
-(row dtype, or mode and table type, RaBitQ's bits): float pools to rtol 1e-4 / atol 1e-3
+(row dtype, or mode and table type, RaBitQ's bits; the pool merge's offsets
+and fetch): float pools to rtol 1e-4 / atol 1e-3
 (the same exact products summed in another order; ids may differ only at
 near-ties, <= 0.1% of entries), int8 pools bit-identical, pools of the int8
 lookup table within that tolerance except where an entry's lut/scale sits on
-a rounding boundary (<= 0.1% of entries). Each approximate phase's recall may
+a rounding boundary (<= 0.1% of entries), the pool merge's selection bit for
+bit (values and pool columns). Each approximate phase's recall may
 be at most 0.005 below the recall of the same search run on the plain
 versions, and each refined phase's recall may not be below its unrefined
 phase's (the CAGRA, Vamana and HNSW searches run no kernel and are not
@@ -317,9 +320,10 @@ def cuda_ms(fn):
 
 
 def kernels():
-    from cuvs_tpu_torch.ops import bf_topk, ivf_scan
+    from cuvs_tpu_torch.ops import bf_topk, ivf_scan, pool_topk
 
-    # name, module, wrapper, plain version, source, TPU kernel it replaces
+    # name, module, wrapper, plain version, source, TPU kernel it replaces (None: the
+    # reference has no Pallas kernel there)
     return [
         ("bf_topk_exact", bf_topk, "bf_topk_exact", "bf_topk_exact_reference",
          "cuvs_tpu_torch/csrc/bf_topk.cu", "cuvs_tpu/ops/bf_topk_pallas.py:44"),
@@ -329,14 +333,24 @@ def kernels():
          "cuvs_tpu_torch/csrc/ivf_scan.cu", "cuvs_tpu/ops/ivf_scan_pallas.py:56"),
         ("pq_scan", ivf_scan, "fused_pq_scan", "fused_pq_scan_reference",
          "cuvs_tpu_torch/csrc/pq_scan.cu", "cuvs_tpu/ops/ivf_scan_pallas.py:195"),
+        ("pool_topk", pool_topk, "pool_topk", "pool_topk_reference",
+         "cuvs_tpu_torch/csrc/pool_topk.cu", None),
     ]
+
+
+def launch_counts():
+    """Each kernel's launches since its counter was last zeroed."""
+    return {name: mod.LAUNCHES[name] for name, mod, *_ in kernels()}
 
 
 def variant(name, args, kw):
     """The variant of a kernel call: the quantized scan's mode and table type
     (RaBitQ: its bits per code; IVF-PQ past 8 bits: its width too, as
-    ``pq-bf16-4bit``), else the dtype of the first argument (queries or
+    ``pq-bf16-4bit``), the pool merge's offsets and fetch (``offs-fetch40``,
+    ``flat-fetch10``), else the dtype of the first argument (queries or
     rows)."""
+    if name == "pool_topk":
+        return f"{'flat' if args[3] is None else 'offs'}-fetch{args[4]}"
     if name == "pq_scan":
         from cuvs_tpu_torch.bench.scan_compare import pq_variant
 
@@ -397,7 +411,8 @@ def plain_versions():
 
 def compare_pools(kernel_out, plain_out, kind):
     """Hold a kernel's pool against its plain version's. kind: "int" (int8
-    rows: bit-identical), "float", or "int8lut" (float, except <= 0.1% of
+    rows: bit-identical), "exact" (the pool merge's selection: values bit for
+    bit, columns equal), "float", or "int8lut" (float, except <= 0.1% of
     entries where a table entry rounded the other way). Returns (max abs
     error over the finite entries, bit-identical?)."""
     import torch
@@ -405,6 +420,10 @@ def compare_pools(kernel_out, plain_out, kind):
     kv, ki = kernel_out
     rv, ri = plain_out
     check(kv.shape == rv.shape and ki.shape == ri.shape, "pool shapes differ")
+    if kind == "exact":
+        check(torch.equal(kv.view(torch.int32), rv.view(torch.int32)) and torch.equal(ki, ri),
+              "pool top-k selection is not bit-identical")
+        return 0.0, True
     identical = torch.equal(kv, rv) and torch.equal(ki, ri)
     if kind == "int":
         check(identical, "int8 pool is not bit-identical")
@@ -993,7 +1012,7 @@ def bench_cli_phase(dev, smi, ds, bf, pq, pq_sp, q, gti, results, tagged):
 
     columns = ["algo", "dataset", "build_s", "params", "recall", "qps", "latency_ms"]
     tmp = tempfile.TemporaryDirectory()
-    before = {**bf_topk.LAUNCHES, **ivf_scan.LAUNCHES}
+    before = launch_counts()
     runs = {"a": ["--config", "ivf_rabitq", "--group", "base"],
             "b": ["--algo", "ivf_flat", "--algo", "ivf_pq", "--build-params", '{"n_lists": 1024}'],
             "c": ["--algo", "brute_force", "--search-grid",
@@ -1022,8 +1041,7 @@ def bench_cli_phase(dev, smi, ds, bf, pq, pq_sp, q, gti, results, tagged):
         datasets.load = real_load
         tmp.cleanup()
     torch.cuda.synchronize()
-    launched = {name: n - before[name] for name, n in {**bf_topk.LAUNCHES,
-                                                      **ivf_scan.LAUNCHES}.items()}
+    launched = {name: n - before[name] for name, n in launch_counts().items()}
     print(f"# cli launches: {json.dumps(launched)}")
     check(all(n > 0 for n in launched.values()), f"the CLI left a kernel unlaunched: {launched}")
     check([len(rows[key]) for key in "abc"] == [12, 4 + 6, 2],
@@ -1222,9 +1240,9 @@ def main() -> int:
 
     results, calls, counts = {}, {}, {}
     held0 = torch.cuda.memory_allocated(dev)  # the dataset and the queries
-    for counter in (bf_topk.LAUNCHES, ivf_scan.LAUNCHES):
-        for key in counter:
-            counter[key] = 0
+    for _, mod, *_ in kernels():
+        for key in mod.LAUNCHES:
+            mod.LAUNCHES[key] = 0
     with recording(calls, counts) as tagged:
         # 1. exact ground truth (fused exact kernel, unfused cross-check)
         t0 = time.time()
@@ -1590,7 +1608,7 @@ def main() -> int:
         phase_peak("cagra search")
         # 20. CAGRA through IVF-PQ + refine, cagra.yaml base 96 -> 64
         split20, events20 = {}, {}
-        launches_before = dict(ivf_scan.LAUNCHES)
+        launches_before = launch_counts()
         t0 = time.time()
         with tagged("-cagra-build"), timed_calls([(knn_graph, "build_knn_graph"),
                                                   (graph_core, "optimize")], split20), \
@@ -1600,9 +1618,10 @@ def main() -> int:
                               metric=ds.metric, seed=0)
         torch.cuda.synchronize()
         pq_builds = ivf_scan.LAUNCHES["pq_scan"] - launches_before["pq_scan"]
+        merges = launch_counts()["pool_topk"] - launches_before["pool_topk"]
         print(f"# cagra build ivf_pq 96 -> 64: {time.time() - t0:.1f} s (knn graph: "
-              f"{split20['build_knn_graph'][0]:.1f} s, {pq_builds} pq_scan launches; optimize: "
-              f"{split20['optimize'][0]:.1f} s)")
+              f"{split20['build_knn_graph'][0]:.1f} s, {pq_builds} pq_scan launches, {merges} "
+              f"pool_topk launches; optimize: {split20['optimize'][0]:.1f} s)")
         n_batches = -(-n // NQ)
         per_batch = {ph: sum(a.elapsed_time(b) for a, b in ev) / n_batches
                      for ph, ev in events20.items()}
@@ -1611,6 +1630,7 @@ def main() -> int:
         print(f"# cagra ivf_pq knn graph, ms per {NQ}-row batch ({n_batches} batches): "
               + ", ".join(f"{ph} {ms:.2f}" for ph, ms in per_batch.items()) + f" ({smi})")
         check(pq_builds >= -(-n // NQ), "cagra ivf_pq build: fewer pq_scan launches than batches")
+        check(merges >= -(-n // NQ), "cagra ivf_pq build: fewer pool_topk launches than batches")
         check_graph(cg2.graph, n, "cagra ivf_pq graph")
         knn96 = split20["build_knn_graph"][1][0]
         knn_rec = id_recall(knn96[rows].cpu(), ex[:, :96])  # phase 18's rows and neighbours
@@ -2198,10 +2218,10 @@ def main() -> int:
         print(f"# phases 30-39: {time.time() - t30:.1f} s")
         # 40-48: the long tail; no kernel of the path runs in this process (phase 48's
         # fused search runs in a subprocess, outside these counters)
-        before = {**bf_topk.LAUNCHES, **ivf_scan.LAUNCHES}
+        before = launch_counts()
         t40 = time.time()
         long_tail(dev, smi, ds, x, q, gti, d2, i2, results["bf_fused_exact_f32"]["qps"])
-        check({**bf_topk.LAUNCHES, **ivf_scan.LAUNCHES} == before,
+        check(launch_counts() == before,
               "phases 40-48 launched a kernel in this process")
         print(f"# phases 40-48: {time.time() - t40:.1f} s")
         # 49. the bench CLI, then the f32 approximate kernel and a traced IVF-PQ search
@@ -2217,7 +2237,7 @@ def main() -> int:
     torch.cuda.synchronize()
     peak = max(*peaks, torch.cuda.max_memory_allocated(dev))
     print(f"# peak device memory: {peak / 2**30:.2f} GiB")
-    launches = {**bf_topk.LAUNCHES, **ivf_scan.LAUNCHES}
+    launches = launch_counts()
     print("# launches during the main path: " + json.dumps(launches))
     for name, *_ in kernels():
         check(launches[name] > 0, f"kernel {name} was not launched by the main path")
@@ -2248,8 +2268,8 @@ def main() -> int:
                 continue
             ms, out = cuda_ms(lambda: getattr(mod, wrapper)(*args, **kw))
             plain_ms, ref = cuda_ms(lambda: getattr(mod, plain)(*args, **kw))
-            kind = ("int8lut" if var.startswith("pq-int8lut") else "int" if var == "int8"
-                    else "float")
+            kind = ("exact" if name == "pool_topk" else "int8lut" if var.startswith("pq-int8lut")
+                    else "int" if var == "int8" else "float")
             err, same = compare_pools(out, ref, kind)
             v = dict(launches=counts[(name, var)], ms=ms, plain_ms=plain_ms, max_abs_err=err,
                      **roofline.kernel_bound(name, args, kw, out), library_ms=None)
@@ -2273,7 +2293,8 @@ def main() -> int:
             variants[var] = v
         check(variants, f"no recorded call of {name}")
         # headline: the bf16 call where the path makes one (the rest are in variants)
-        head = variants.get("bfloat16") or variants.get("pq-bf16") or next(iter(variants.values()))
+        head = (variants.get("bfloat16") or variants.get("pq-bf16") or variants.get("offs-fetch40")
+                or next(iter(variants.values())))
         report.append(dict(name=name, route="cuda", source=source, replaces=replaces,
                            launches=launches[name],
                            max_abs_err=max(v["max_abs_err"] for v in variants.values()),

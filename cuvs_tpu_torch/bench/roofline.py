@@ -64,6 +64,12 @@ def kernel_bound(name: str, args, kw, out) -> dict:
         ops = (2.0 * S * _scan_pairs(qidx, lo, sizes, kw["W"])
                + 2.0 * float((qidx >= 0).sum()) * book * queries.shape[1])
         return bound(ops, "fp32", n_bytes)
+    if name == "pool_topk":
+        # a selection: each kept pair's pool row read once (not the whole
+        # pool), the pair tables and offsets, the outputs; no arithmetic to bound
+        out_v, pair_tile = args[0], args[1]
+        rows = float((pair_tile < out_v.shape[0]).sum())
+        return bound(0.0, "fp32", rows * out_v.shape[2] * 4 + nbytes(*args[1:4], *out))
     raise KeyError(name)
 
 

@@ -28,6 +28,7 @@ from cuvs_tpu_torch.distance import pairwise
 from cuvs_tpu_torch.distance.pairwise import DistanceType
 from cuvs_tpu_torch.neighbors import filters as filt
 from cuvs_tpu_torch.neighbors import ivf_common as ivf
+from cuvs_tpu_torch.ops import pool_topk as ops_pool
 from cuvs_tpu_torch.selection.select_k import topk
 from cuvs_tpu_torch.utils import tracing
 
@@ -174,41 +175,40 @@ def cluster_major_scan_fused(sorted_data, sorted_norms, lists: ivf.SortedLists, 
             ip=ip_kernel, int8_mode=int8_mode, cap=cap)
     with tracing.span("ivf::merge"):
         return _flat_pool(out_v, out_i, pair_tile, pair_slot, al, lists, queries_f32, k, metric,
-                          ip, cap, recall_target, flt if post_mode else None, bitset_mode,
-                          overfetch)
+                          ip, cap, flt if post_mode else None, bitset_mode, overfetch)
+
+
+def _pool_best(out_v, out_i, pair_tile, pair_slot, al, lists: ivf.SortedLists, offs,
+               fetch: int):
+    """The ``fetch`` best entries of each query's pool (``ops.pool_topk``)
+    and their global ids, recovered at the winners only from (window start,
+    128-slice, lane): (values [nq, fetch], ids int32, finite mask)."""
+    Fc = out_v.shape[2]
+    tv, tl = ops_pool.pool_topk(out_v, pair_tile, pair_slot, offs, fetch)
+    ok = torch.isfinite(tv)
+    # pool column = probe j * Fc + rank r * 128 + lane; stored uint8 = slice.
+    # A dropped pair's tile (n_tiles) is clamped: its entries read +inf, never ok.
+    j, c = tl // Fc, tl % Fc
+    tile = torch.gather(pair_tile, 1, j).long().clamp_max(out_v.shape[0] - 1)
+    slot = torch.gather(pair_slot, 1, j).long()
+    pos = al[tile] + out_i[tile, slot, c].long() * 128 + c % 128
+    fi = torch.where(ok, lists.ids[torch.where(ok, pos, 0)], 0).to(torch.int32)
+    return tv, fi, ok
 
 
 def _flat_pool(out_v, out_i, pair_tile, pair_slot, al, lists: ivf.SortedLists, queries_f32,
-               k: int, metric, ip: bool, cap: int, recall_target, post_filter, bitset_mode: bool,
+               k: int, metric, ip: bool, cap: int, post_filter, bitset_mode: bool,
                overfetch: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Postlude of the flat fused scan: sentinel-pad the tile pool, cross-probe
-    top-k, recover global ids from (window start, 128-slice, lane), add |q|^2
-    (L2). ``post_filter`` (bitmap/udf) masks an ``overfetch``x deep pool
-    before the final cut."""
+    """Postlude of the flat fused scan: cross-probe top-k of the tile pool,
+    global ids, |q|^2 added (L2). ``post_filter`` (bitmap/udf) masks an
+    ``overfetch``x deep pool before the final cut."""
     nq, p = pair_tile.shape
     post_mode = post_filter is not None
     Fc = cap * 128
     tracing.count("merge_rows", nq * p * Fc)
-
-    # sentinel tile row for dropped pairs (cannot occur at the default bound)
-    out_v = torch.cat([out_v, torch.full((1,) + out_v.shape[1:], float("inf"),
-                                         device=out_v.device)])
-    out_i = torch.cat([out_i, torch.zeros((1,) + out_i.shape[1:], dtype=out_i.dtype,
-                                          device=out_i.device)])
-    pt, ps = pair_tile.long(), pair_slot.long()
-    pv = out_v[pt, ps].reshape(nq, p * Fc)
-    po = out_i[pt, ps].reshape(nq, p * Fc)
-
     kk = min(k, p * Fc)
     fetch = min(p * Fc, max(k * overfetch, k)) if post_mode else kk
-    tv, tl = topk(pv, fetch, True, recall_target)
-    ok = torch.isfinite(tv)
-    # pool column = probe j * Fc + rank r * 128 + lane; stored uint8 = slice
-    al_pad = torch.cat([al, al.new_zeros(1)])
-    tile_sel = torch.gather(pt, 1, tl // Fc)
-    off = torch.gather(po, 1, tl).long()
-    pos = al_pad[tile_sel] + off * 128 + (tl % Fc) % 128
-    fi = torch.where(ok, lists.ids[torch.where(ok, pos, 0)], 0).to(torch.int32)
+    tv, fi, ok = _pool_best(out_v, out_i, pair_tile, pair_slot, al, lists, None, fetch)
 
     if bitset_mode and ip:
         tv = tv * 0.5  # scored -2 q.y through the L2 penalty path
@@ -337,7 +337,7 @@ def cluster_major_scan_pq_fused(codes_t, sorted_norms, centers_rot, pq_centers, 
         offs = _cluster_offsets(qrot, centers_rot, probe_ids, ip)
         return _pool_with_offsets(
             out_v, out_i, pair_tile, pair_slot, al, lists, offs, k, metric, ip, cap,
-            recall_target, post_filter=flt if (flt is not None and not bitset_mode) else None,
+            post_filter=flt if (flt is not None and not bitset_mode) else None,
             overfetch=overfetch)
 
 
@@ -355,34 +355,19 @@ def _cluster_offsets(qrot, centers_rot, probe_ids, ip: bool) -> torch.Tensor:
 
 
 def _pool_with_offsets(out_v, out_i, pair_tile, pair_slot, al, lists: ivf.SortedLists, offs,
-                       k: int, metric, ip: bool, cap: int, recall_target, post_filter=None,
+                       k: int, metric, ip: bool, cap: int, post_filter=None,
                        overfetch: int = 4) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Postlude of the quantized fused scans: sentinel-pad the tile pool, add
-    the per-probe offsets, cross-probe top-k, recover global ids from
-    (window start, 128-slice, lane). Unlike the flat scan's postlude it adds
-    no |q|^2 (the offsets carry the query terms) and clamps L2 at 0 only for
-    finite entries. ``post_filter`` (bitmap/udf) masks an ``overfetch``x
-    deep pool before the final cut."""
+    """Postlude of the quantized fused scans: cross-probe top-k of the tile
+    pool plus the per-probe offsets, global ids. Unlike the flat scan's
+    postlude it adds no |q|^2 (the offsets carry the query terms) and clamps
+    L2 at 0 only for finite entries. ``post_filter`` (bitmap/udf) masks an
+    ``overfetch``x deep pool before the final cut."""
     nq, p = pair_tile.shape
     Fc = cap * 128
     tracing.count("merge_rows", nq * p * Fc)
-    out_v = torch.cat([out_v, torch.full((1,) + out_v.shape[1:], float("inf"),
-                                         device=out_v.device)])
-    out_i = torch.cat([out_i, torch.zeros((1,) + out_i.shape[1:], dtype=out_i.dtype,
-                                          device=out_i.device)])
-    pt, ps = pair_tile.long(), pair_slot.long()
-    pv = (out_v[pt, ps] + offs[:, :, None]).reshape(nq, p * Fc)
-    po = out_i[pt, ps].reshape(nq, p * Fc)
-
     kk = min(k, p * Fc)
     fetch = min(p * Fc, max(k * overfetch, k)) if post_filter is not None else kk
-    tv, tl = topk(pv, fetch, True, recall_target)
-    ok = torch.isfinite(tv)
-    al_pad = torch.cat([al, al.new_zeros(1)])
-    tile_sel = torch.gather(pt, 1, tl // Fc)
-    off = torch.gather(po, 1, tl).long()
-    pos = al_pad[tile_sel] + off * 128 + (tl % Fc) % 128
-    fi = torch.where(ok, lists.ids[torch.where(ok, pos, 0)], 0).to(torch.int32)
+    tv, fi, ok = _pool_best(out_v, out_i, pair_tile, pair_slot, al, lists, offs, fetch)
 
     if post_filter is not None:
         qid = torch.arange(nq, device=fi.device)
@@ -447,7 +432,7 @@ def cluster_major_scan_rabitq_fused(codes_t, sorted_fa, sorted_fr, centers_rot, 
         offs = _cluster_offsets(qrot, centers_rot, probe_ids, ip)
         return _pool_with_offsets(
             out_v, out_i, pair_tile, pair_slot, al, lists, offs, k, metric, ip, cap,
-            recall_target, post_filter=flt if (flt is not None and not bitset_mode) else None,
+            post_filter=flt if (flt is not None and not bitset_mode) else None,
             overfetch=overfetch)
 
 

@@ -45,6 +45,7 @@ _SIGNATURES = {
     "cuvs_pq_scan": [_P, _I, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                      _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
     "cuvs_pq_scan_attributes": [_I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "cuvs_pool_topk": [_P, _I, _I, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P],
 }
 # seconds of each source's nvcc in the last build of this process (build())
 NVCC_SECONDS: dict = {}

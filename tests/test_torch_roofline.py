@@ -58,3 +58,21 @@ def test_scan_bound_takes_the_products_type(dtype, qdtype, peak, monkeypatch):
     ops = 2.0 * (3 * 300 + 1 * 128) * 32
     assert got == {"bound_ms": pytest.approx(ops / roofline.PEAK[peak] * 1e3),
                    "bound_by": "operations"}
+
+
+@pytest.mark.parametrize("offsets", [False, True])
+def test_pool_topk_bound_reads_each_kept_pair_row_once(offsets):
+    from cuvs_tpu_torch.ops import pool_topk
+    from torch_parity import pool_case
+
+    case = pool_case(5, 6, 4, 256, offsets=offsets, dropped=0.3)
+    args = tuple(None if case[k] is None else torch.from_numpy(case[k])
+                 for k in ("out_v", "pair_tile", "pair_slot", "offs")) + (20,)
+    out = pool_topk.pool_topk(*args)
+    got = roofline.kernel_bound("pool_topk", args, {}, out)
+    kept = int((case["pair_tile"] < case["out_v"].shape[0]).sum())
+    assert 0 < kept < 6 * 4
+    # rows of the dropped pairs and the pool's unused slots are not read
+    n_bytes = kept * 256 * 4 + 2 * 6 * 4 * 4 + (6 * 4 * 4 if offsets else 0) + 6 * 20 * (4 + 8)
+    assert got == {"bound_ms": pytest.approx(n_bytes / roofline.HBM_BYTES_PER_S * 1e3),
+                   "bound_by": "bytes"}

@@ -55,3 +55,43 @@ def pq_scan_case(seed, mode, bits, S, book, pq_len, al, lo, sizes, M, W, n_pad, 
         qidx=rng.integers(-1, nq, (n_tiles, M)).astype(np.int32),
         al=np.asarray(al, np.int32), lo=np.asarray(lo, np.int32),
         sizes=np.asarray(sizes, np.int32))
+
+
+def pool_case(seed, nq, p, F, M=8, tied=False, offsets=False, dropped=0.05, inf_share=0.1,
+              inf_rows=0.05):
+    """Seeded numpy operands of one pool merge (``ops.pool_topk``): a scan's
+    pool ``out_v`` [n_tiles, M, F] f32 and in-bin slices ``out_i`` uint8,
+    each (query, probe) pair on a slot of its own (``pair_tile``,
+    ``pair_slot`` [nq, p] int32; a ``dropped`` share of the pairs on tile
+    n_tiles), +inf on an ``inf_share`` of the entries and on whole rows
+    (``inf_rows``), the last query's pairs all dropped or +inf, and per-pair
+    offsets ``offs`` [nq, p] f32 (None without ``offsets``). ``tied``: small
+    integer values and offsets, so entries tie within and across rows, with
+    both signs of zero. Also ``al`` [n_tiles] int32 window starts (multiples
+    of 128) and ``ids`` [al.max() + 4*128] int32 global ids."""
+    rng = np.random.default_rng(seed)
+    n_tiles = -(-nq * p // M) + 1
+    slots = rng.permutation(n_tiles * M)[:nq * p]
+    pair_tile = (slots // M).reshape(nq, p).astype(np.int32)
+    pair_slot = (slots % M).reshape(nq, p).astype(np.int32)
+    drop = rng.random((nq, p)) < dropped
+    drop[-1, ::2] = True
+    pair_tile[drop] = n_tiles
+    if tied:
+        out_v = rng.integers(-4, 5, (n_tiles, M, F)).astype(np.float32)
+        out_v[out_v == 0] = np.where(rng.random(int((out_v == 0).sum())) < 0.5, -0.0, 0.0)
+    else:
+        out_v = rng.standard_normal((n_tiles, M, F)).astype(np.float32)
+    out_v[rng.random(out_v.shape) < inf_share] = np.inf
+    out_v[rng.random((n_tiles, M)) < inf_rows] = np.inf
+    kept = pair_tile[-1] < n_tiles
+    out_v[pair_tile[-1, kept], pair_slot[-1, kept]] = np.inf
+    offs = None
+    if offsets:
+        offs = (rng.integers(0, 3, (nq, p)) if tied else
+                rng.standard_normal((nq, p)) * 2).astype(np.float32)
+    out_i = rng.integers(0, 4, (n_tiles, M, F)).astype(np.uint8)
+    al = (rng.integers(0, 8, n_tiles) * 128).astype(np.int32)
+    ids = rng.permutation(int(al.max()) + 4 * 128).astype(np.int32)
+    return dict(out_v=out_v, out_i=out_i, pair_tile=pair_tile, pair_slot=pair_slot, offs=offs,
+                al=al, ids=ids)
