@@ -16,6 +16,11 @@ search_width=1, max_iterations auto.
     has an unexplored finite entry (one host sync per step) or the
     iteration budget ends.
   * filtering: filtered nodes route the search but are not returned.
+  * stage spans (recorded only under a profiler capture, ``utils/tracing``):
+    ``cagra::seeds`` (a chunk's host draw and its copy to the device) and
+    ``cagra::beam`` (a chunk's whole loop) under ``cagra::search``, which
+    counts ``queries`` and ``beam_steps`` (the steps the loops ran);
+    ``cagra::knn_graph`` and ``cagra::optimize`` under ``cagra::build``.
   * layouts: raw rows (``Index``), VPQ codes decoded per candidate
     (``compress`` -> ``CompressedIndex``) and packed records holding each
     node's neighbours' int8 vectors (``pack`` -> ``PackedIndex``). One loop,
@@ -48,7 +53,7 @@ from cuvs_tpu_torch.neighbors import graph_core, knn_graph
 from cuvs_tpu_torch.neighbors import ivf_pq as ivfpq
 from cuvs_tpu_torch.preprocessing import quantize
 from cuvs_tpu_torch.utils.device import as_tensor as _on_device
-from cuvs_tpu_torch.utils.tracing import traced
+from cuvs_tpu_torch.utils.tracing import count, span, traced
 
 EXPLORED = 1 << 30  # flag packed into the id payload of the itopk list
 
@@ -308,14 +313,17 @@ def build(dataset, params: Optional[IndexParams] = None, device=None, **kw) -> I
     n = dataset.shape[0]
     ideg = min(params.intermediate_graph_degree, n - 1)
     gdeg = min(params.graph_degree, ideg)
-    neighbors, _ = knn_graph.build_knn_graph(
-        dataset, ideg, metric=params.metric, algo=params.build_algo,
-        ivf_pq_params=params.ivf_pq_params, refine_ratio=params.refine_ratio, seed=params.seed,
-        compute_dtype=params.build_compute_dtype, recall_target=params.build_recall_target,
-        nn_descent_params=params.nn_descent_params, n_probes=params.build_n_probes)
-    graph = graph_core.optimize(
-        neighbors, gdeg, guarantee_connectivity=params.guarantee_connectivity,
-        dataset=dataset if params.guarantee_connectivity else None)
+    with span("cagra::knn_graph"):
+        neighbors, _ = knn_graph.build_knn_graph(
+            dataset, ideg, metric=params.metric, algo=params.build_algo,
+            ivf_pq_params=params.ivf_pq_params, refine_ratio=params.refine_ratio,
+            seed=params.seed, compute_dtype=params.build_compute_dtype,
+            recall_target=params.build_recall_target,
+            nn_descent_params=params.nn_descent_params, n_probes=params.build_n_probes)
+    with span("cagra::optimize"):
+        graph = graph_core.optimize(
+            neighbors, gdeg, guarantee_connectivity=params.guarantee_connectivity,
+            dataset=dataset if params.guarantee_connectivity else None)
     return from_graph(dataset, graph, metric=params.metric, storage_dtype=params.storage_dtype)
 
 
@@ -397,38 +405,40 @@ def _beam_search(seed_d, seeds, graph, qids, prefilter, score_children, k: int, 
     def unexplored_finite(state_v, state_id):
         return (state_id >= 0) & ((state_id & EXPLORED) == 0) & torch.isfinite(state_v)
 
-    it = 0
-    unexplored = unexplored_finite(state_v, state_id)
-    while it < max_iter and bool(unexplored.any()):
-        raw_id = state_id & (EXPLORED - 1)
-        # the W best unexplored parents: the first W unexplored slots (cumsum rank)
-        rank = torch.cumsum(unexplored.to(torch.int32), 1)
-        sel = unexplored & (rank <= W)
-        slot = torch.where(sel, rank - 1, W).long()
-        parent_ids = torch.full((B, W + 1), -1, dtype=torch.int32, device=dev).scatter_(
-            1, slot, torch.where(sel, raw_id, -1))[:, :W]
-        parent_valid = parent_ids >= 0
-        state_id = torch.where(sel, state_id | EXPLORED, state_id)
-        if vis_size > 0:
-            pos = (it * W + slots) % vis_size
-            vis[:, pos] = torch.where(parent_valid, parent_ids, -2)
-
-        safe_p = torch.where(parent_valid, parent_ids, 0)
-        children = graph[safe_p.long()].reshape(B, C)
-        children = torch.where(parent_valid.repeat_interleave(deg, 1), children, -1)
-        # dedup against the itopk list, the visited ring and earlier candidates
-        invalid = (children < 0) | (children[:, :, None] == raw_id[:, None, :]).any(2)
-        invalid |= ((children[:, :, None] == children[:, None, :]) & c_earlier).any(2)
-        if vis_size > 0:
-            invalid |= (children[:, :, None] == vis[:, None, :]).any(2)
-        cand_d = torch.where(invalid, float("inf"),
-                             score_children(safe_p, torch.clamp_min(children, 0)))
-
-        mv, order = torch.sort(torch.cat([state_v, cand_d], 1), dim=1, stable=True)
-        mid = torch.gather(torch.cat([state_id, children], 1), 1, order)
-        state_v, state_id = mv[:, :L], mid[:, :L]
-        it += 1
+    with span("cagra::beam"):
+        it = 0
         unexplored = unexplored_finite(state_v, state_id)
+        while it < max_iter and bool(unexplored.any()):
+            raw_id = state_id & (EXPLORED - 1)
+            # the W best unexplored parents: the first W unexplored slots (cumsum rank)
+            rank = torch.cumsum(unexplored.to(torch.int32), 1)
+            sel = unexplored & (rank <= W)
+            slot = torch.where(sel, rank - 1, W).long()
+            parent_ids = torch.full((B, W + 1), -1, dtype=torch.int32, device=dev).scatter_(
+                1, slot, torch.where(sel, raw_id, -1))[:, :W]
+            parent_valid = parent_ids >= 0
+            state_id = torch.where(sel, state_id | EXPLORED, state_id)
+            if vis_size > 0:
+                pos = (it * W + slots) % vis_size
+                vis[:, pos] = torch.where(parent_valid, parent_ids, -2)
+
+            safe_p = torch.where(parent_valid, parent_ids, 0)
+            children = graph[safe_p.long()].reshape(B, C)
+            children = torch.where(parent_valid.repeat_interleave(deg, 1), children, -1)
+            # dedup against the itopk list, the visited ring and earlier candidates
+            invalid = (children < 0) | (children[:, :, None] == raw_id[:, None, :]).any(2)
+            invalid |= ((children[:, :, None] == children[:, None, :]) & c_earlier).any(2)
+            if vis_size > 0:
+                invalid |= (children[:, :, None] == vis[:, None, :]).any(2)
+            cand_d = torch.where(invalid, float("inf"),
+                                 score_children(safe_p, torch.clamp_min(children, 0)))
+
+            mv, order = torch.sort(torch.cat([state_v, cand_d], 1), dim=1, stable=True)
+            mid = torch.gather(torch.cat([state_id, children], 1), 1, order)
+            state_v, state_id = mv[:, :L], mid[:, :L]
+            it += 1
+            unexplored = unexplored_finite(state_v, state_id)
+    count("beam_steps", it)
 
     raw_id = state_id & (EXPLORED - 1)
     out_v = torch.where(state_id >= 0, state_v, float("inf"))
@@ -528,11 +538,13 @@ def search(index, queries, k: int, params: Optional[SearchParams] = None,
     itopk, max_iter, vis_size = _plan(params, k)
     n_seeds = max(itopk, params.num_random_samplings * itopk)
     chunk = int(min(params.query_chunk, max(1, nq)))
+    count("queries", nq)
     outs_d, outs_i = [], []
     for s in range(0, nq, chunk):
         q = queries[s:s + chunk]
         qids = torch.arange(s, s + q.shape[0], device=index.device)
-        seeds = _draw_seeds(index.size, q.shape[0], n_seeds, seed, s)
+        with span("cagra::seeds"):
+            seeds = _draw_seeds(index.size, q.shape[0], n_seeds, seed, s).to(index.device)
         plan = (int(k), int(itopk), int(params.search_width), int(max_iter), int(vis_size),
                 index.metric, params.compute_dtype)
         if isinstance(index, PackedIndex):
