@@ -78,7 +78,11 @@ same shape): 1,000,000 x 128 f32, 4096 queries, k = 10.
      the row's two clusters (the partition's bound) and the recall of a bf16
      search over all rows (the operands' bound);
  19. CAGRA search at itopk 64 and 128 (search_width 2, bf16, one chunk of
-     4096): recall@10 and QPS, itopk 128 at most 0.005 below 64; then itopk 64
+     4096): recall@10 and QPS, itopk 128 at most 0.005 below 64; the
+     benchmark cell's beam search (10,000 queries, the 4096 repeated, in one
+     chunk at itopk 128, width 1, f32: the ``cagra_beam`` kernels line's
+     headline variant) timed, one kernel launch for its chunk, and one a
+     chunk for the 4096 queries in chunks of 1000; then itopk 64
      + exact refine from 40 candidates (not below the unrefined), climbing
      bench.py's ladder (128, 192) until recall@10 >= 0.95, or failing; the
      first 256 queries searched on a CPU copy of the index with the same seeds
@@ -215,9 +219,10 @@ same shape): 1,000,000 x 128 f32, 4096 queries, k = 10.
      back with the reference's seven columns, recall not falling (slack
      0.005) as n_probes grows within a build, the exact row at least 0.999,
      the 3-bit 50-probe RaBitQ row within 0.02 of phase 7's, and all five
-     kernels launched by the CLI. The CLI's calls are recorded as variants
-     of their own (``-cli``: the f32 IVF-Flat scan, RaBitQ at 1, 3, 5 and 8
-     bits, ...), so each is held against its plain version with the others.
+     kernels of the IVF and brute-force searches launched by the CLI. The
+     CLI's calls are recorded as variants of their own (``-cli``: the f32
+     IVF-Flat scan, RaBitQ at 1, 3, 5 and 8 bits, ...), so each is held
+     against its plain version with the others.
      Then one f32 approximate search of the 4096 queries (the kernels line's
      ``float32`` variant of ``bf_topk_approx``) and five IVF-PQ searches of
      the 10,000 queries, each under ``tracing.start_profiler_trace``: every
@@ -226,7 +231,7 @@ same shape): 1,000,000 x 128 f32, 4096 queries, k = 10.
      median search's device time per kernel name.
 
 Each of phases 40-48 prints its seconds and its device-memory peak above what
-is held, beside the card's name and power limit; they launch none of the five
+is held, beside the card's name and power limit; they launch none of the six
 kernels in this process (checked), phase 48's driver launches the exact one in
 its own.
 
@@ -240,17 +245,22 @@ kernel of the path must have launched. Each variant's line carries its own
 count of wrapper calls in that run (each one launch on the card). Then each kernel is held against its
 plain PyTorch version on the inputs the path gave it, once per variant
 (row dtype, or mode and table type, RaBitQ's bits; the pool merge's offsets
-and fetch): float pools to rtol 1e-4 / atol 1e-3
+and fetch; the beam search's types, itopk, width and degree): float pools to
+rtol 1e-4 / atol 1e-3
 (the same exact products summed in another order; ids may differ only at
 near-ties, <= 0.1% of entries), int8 pools bit-identical, pools of the int8
 lookup table within that tolerance except where an entry's lut/scale sits on
 a rounding boundary (<= 0.1% of entries), the pool merge's selection bit for
-bit (values and pool columns). Each approximate phase's recall may
-be at most 0.005 below the recall of the same search run on the plain
-versions, and each refined phase's recall may not be below its unrefined
-phase's (the CAGRA, Vamana and HNSW searches run no kernel and are not
-rerun). Kernel and plain times are CUDA-event times of one call at the
-path's shapes, after a warm-up call. Beside each: its bound (the least time
+bit (values and pool columns), the beam search's final lists equal on at
+least 99% of their ids (a near-tie summed in another order steers a beam
+elsewhere), the distances to that tolerance where the ids agree, the walk's
+steps, parents and scored children summed over the queries within 1% of
+the loop's. Each approximate phase's recall may be at most 0.005 below the
+recall of the same search run on the plain versions, and each refined
+phase's recall may not be below its unrefined phase's (the CAGRA, Vamana
+and HNSW searches are held to the loop through the beam kernel's recorded
+calls, not rerun). Kernel and plain times are CUDA-event times of one call
+at the path's shapes, after a warm-up call. Beside each: its bound (the least time
 the card could take: bytes over the memory rate or operations over the peak
 rate of their type, cuvs_tpu_torch/bench/roofline.py), its share of that
 bound, and for the brute-force kernels the time of the cuBLAS product of the
@@ -295,6 +305,10 @@ VAMANA_ROWS = 100_000
 FLOAT_RTOL, FLOAT_ATOL, ID_MISMATCH = 1e-4, 1e-3, 1e-3
 RECALL_SLACK = 0.005
 TRACED_SEARCHES = 5  # phase 49's IVF-PQ searches under the profiler (the median is read)
+# the beam search of the benchmark's CAGRA cell: 10,000 queries in one chunk at itopk 128,
+# width 1, over f32 rows and a degree-64 graph (phase 19 runs it on phase 18's graph)
+CELL_NQ = 10_000
+CELL_BEAM = "float32-float32-itopk128-w1-deg64"
 
 
 class SmokeFailure(RuntimeError):
@@ -320,7 +334,7 @@ def cuda_ms(fn):
 
 
 def kernels():
-    from cuvs_tpu_torch.ops import bf_topk, ivf_scan, pool_topk
+    from cuvs_tpu_torch.ops import bf_topk, cagra_beam, ivf_scan, pool_topk
 
     # name, module, wrapper, plain version, source, TPU kernel it replaces (None: the
     # reference has no Pallas kernel there)
@@ -335,6 +349,8 @@ def kernels():
          "cuvs_tpu_torch/csrc/pq_scan.cu", "cuvs_tpu/ops/ivf_scan_pallas.py:195"),
         ("pool_topk", pool_topk, "pool_topk", "pool_topk_reference",
          "cuvs_tpu_torch/csrc/pool_topk.cu", None),
+        ("cagra_beam", cagra_beam, "beam_search", "beam_search_reference",
+         "cuvs_tpu_torch/csrc/cagra_beam.cu", None),
     ]
 
 
@@ -347,10 +363,15 @@ def variant(name, args, kw):
     """The variant of a kernel call: the quantized scan's mode and table type
     (RaBitQ: its bits per code; IVF-PQ past 8 bits: its width too, as
     ``pq-bf16-4bit``), the pool merge's offsets and fetch (``offs-fetch40``,
-    ``flat-fetch10``), else the dtype of the first argument (queries or
-    rows)."""
+    ``flat-fetch10``), the beam search's rows, compute type, itopk, width and
+    degree (``float32-float32-itopk128-w1-deg64``), else the dtype of the
+    first argument (queries or rows)."""
     if name == "pool_topk":
         return f"{'flat' if args[3] is None else 'offs'}-fetch{args[4]}"
+    if name == "cagra_beam":
+        rows, graph, state_v, width, compute = args[0], args[2], args[5], args[7], args[11]
+        return (f"{str(rows.dtype).replace('torch.', '')}-{str(compute).replace('torch.', '')}"
+                f"-itopk{state_v.shape[1]}-w{width}-deg{graph.shape[1]}")
     if name == "pq_scan":
         from cuvs_tpu_torch.bench.scan_compare import pq_variant
 
@@ -438,6 +459,38 @@ def compare_pools(kernel_out, plain_out, kind):
           f"(max abs err {float(err.max())})")
     mism = float((ki != ri).float().mean())
     check(mism <= ID_MISMATCH, f"pool ids differ at {mism:.2e} of entries")
+    return (float(err.max()) if err.numel() else 0.0), identical
+
+
+def compare_walks(kernel_out, plain_out):
+    """Hold the beam kernel's final lists against the loop's: the ids of at
+    least 99% of (query, slot) entries equal (a near-tie summed in another
+    order may steer a beam elsewhere, and with bf16 operands ties are
+    common), the distances within FLOAT_RTOL / FLOAT_ATOL where the ids
+    agree, and the walk's steps, parents and scored children, summed over
+    the queries, within 1% of the loop's (a query may reach the same list
+    by another path). Returns (max abs error where the ids agree,
+    bit-identical?)."""
+    import torch
+
+    (kv, ki, kc), (rv, ri, rc) = kernel_out, plain_out
+    check(kv.shape == rv.shape and ki.shape == ri.shape and kc.shape == rc.shape,
+          "beam lists' shapes differ")
+    same = ki == ri
+    share = float(same.float().mean())
+    check(share >= 0.99, f"beam lists: ids equal on {share:.4f} of the entries, below 0.99")
+    a, b = kv[same], rv[same]
+    fin = torch.isfinite(b)
+    check(torch.equal(fin, torch.isfinite(a)), "beam lists differ in their +inf entries")
+    err = (a[fin] - b[fin]).abs()
+    check(bool((err <= FLOAT_ATOL + FLOAT_RTOL * b[fin].abs()).all()),
+          f"beam distances differ beyond tolerance (max abs err {float(err.max())})")
+    ks, rs = kc.double().sum(0), rc.double().sum(0)
+    check(bool(((ks - rs).abs() <= 0.01 * rs).all()),
+          f"beam walk counts {ks.tolist()} differ from the loop's {rs.tolist()} by over 1%")
+    print(f"# cagra_beam: counts equal on {float((kc == rc).all(1).float().mean()):.4f} of "
+          f"the queries, ids on {share:.4f} of the entries")
+    identical = torch.equal(kv, rv) and torch.equal(ki, ri) and torch.equal(kc, rc)
     return (float(err.max()) if err.numel() else 0.0), identical
 
 
@@ -1041,7 +1094,9 @@ def bench_cli_phase(dev, smi, ds, bf, pq, pq_sp, q, gti, results, tagged):
         datasets.load = real_load
         tmp.cleanup()
     torch.cuda.synchronize()
-    launched = {name: n - before[name] for name, n in launch_counts().items()}
+    # the CLI's configurations run no graph search
+    launched = {name: n - before[name] for name, n in launch_counts().items()
+                if name != "cagra_beam"}
     print(f"# cli launches: {json.dumps(launched)}")
     check(all(n > 0 for n in launched.values()), f"the CLI left a kernel unlaunched: {launched}")
     check([len(rows[key]) for key in "abc"] == [12, 4 + 6, 2],
@@ -1537,7 +1592,7 @@ def main() -> int:
 
         def cagra_phase(label, fn, gt=None):
             phase(label, fn, gt)
-            cg_res[label] = results.pop(label)  # no kernel: no plain-version rerun
+            cg_res[label] = results.pop(label)  # held to the loop through the beam kernel's calls
 
         # 18. CAGRA build as bench.py:307-319 builds it: partitioned knn graph + optimize
         split = {}
@@ -1579,6 +1634,28 @@ def main() -> int:
             cagra_phase(f"cagra_itopk{it}", lambda qq, _sp=cg_sp[it]: cagra.search(cg, qq, K, _sp))
         check(cg_res["cagra_itopk128"]["recall"] >= cg_res["cagra_itopk64"]["recall"] - RECALL_SLACK,
               "cagra: itopk 128 recall more than 0.005 below itopk 64's")
+        # the benchmark cell's beam search: one chunk of 10,000 queries (each copy of the
+        # 4096 draws its own seeds), itopk 128, width 1, f32; one kernel launch a chunk
+        q_cell = q.repeat(-(-CELL_NQ // NQ), 1)[:CELL_NQ]
+        cell_sp = cagra.SearchParams(itopk_size=128, query_chunk=CELL_NQ)
+        cagra.search(cg, q_cell, K, cell_sp)  # warm-up
+        beams = launch_counts()["cagra_beam"]
+        torch.cuda.synchronize()
+        t0 = time.time()
+        _, i_cell = cagra.search(cg, q_cell, K, cell_sp)
+        torch.cuda.synchronize()
+        secs = time.time() - t0
+        check(launch_counts()["cagra_beam"] == beams + 1,
+              "cagra: the 10,000-query chunk did not launch the beam kernel once")
+        beams = launch_counts()["cagra_beam"]
+        cagra.search(cg, q, K, cagra.SearchParams(itopk_size=64, search_width=2,
+                                                  compute_dtype=torch.bfloat16, query_chunk=1000))
+        check(launch_counts()["cagra_beam"] == beams + -(-NQ // 1000),
+              "cagra: not one beam kernel launch a chunk of 1000 queries")
+        print(f"# cagra beam search in the benchmark cell's shape ({CELL_NQ} queries in one "
+              f"chunk, itopk 128, width 1, f32): {secs * 1e3:.1f} ms, {CELL_NQ / secs:.0f} QPS, "
+              f"recall@10 of the first {NQ} {id_recall(i_cell[:NQ].cpu(), gti):.4f}; one "
+              f"launch a chunk")
         for it in (64, 128, 192):  # bench.py's ladder, until refined recall@10 >= 0.95
             label = f"cagra_itopk{it}_refine"
             cagra_phase(label, lambda qq, _sp=cg_sp[it]: refine.refine(
@@ -2270,9 +2347,14 @@ def main() -> int:
             plain_ms, ref = cuda_ms(lambda: getattr(mod, plain)(*args, **kw))
             kind = ("exact" if name == "pool_topk" else "int8lut" if var.startswith("pq-int8lut")
                     else "int" if var == "int8" else "float")
-            err, same = compare_pools(out, ref, kind)
+            if name == "cagra_beam":  # the bound counts the loop's walk
+                err, same = compare_walks(out, ref)
+                bound = roofline.kernel_bound(name, args, kw, ref)
+            else:
+                err, same = compare_pools(out, ref, kind)
+                bound = roofline.kernel_bound(name, args, kw, out)
             v = dict(launches=counts[(name, var)], ms=ms, plain_ms=plain_ms, max_abs_err=err,
-                     **roofline.kernel_bound(name, args, kw, out), library_ms=None)
+                     **bound, library_ms=None)
             v["share"] = v["bound_ms"] / ms
             if mod is bf_topk:
                 v["product_ms"] = roofline.product_ms(args[0], args[1])
@@ -2294,7 +2376,7 @@ def main() -> int:
         check(variants, f"no recorded call of {name}")
         # headline: the bf16 call where the path makes one (the rest are in variants)
         head = (variants.get("bfloat16") or variants.get("pq-bf16") or variants.get("offs-fetch40")
-                or next(iter(variants.values())))
+                or variants.get(CELL_BEAM) or next(iter(variants.values())))
         report.append(dict(name=name, route="cuda", source=source, replaces=replaces,
                            launches=launches[name],
                            max_abs_err=max(v["max_abs_err"] for v in variants.values()),

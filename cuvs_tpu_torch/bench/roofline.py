@@ -70,6 +70,18 @@ def kernel_bound(name: str, args, kw, out) -> dict:
         out_v, pair_tile = args[0], args[1]
         rows = float((pair_tile < out_v.shape[0]).sum())
         return bound(0.0, "fp32", rows * out_v.shape[2] * 4 + nbytes(*args[1:4], *out))
+    if name == "cagra_beam":
+        # a walk over the graph: each expanded parent's graph row and each
+        # scored child's row and norm read once, as the walk counts them
+        # (``out``'s counts [B, 3]: steps, parents, scored children), the
+        # queries, their norms and the lists in and out; 2 d operations a
+        # scored child
+        rows, graph = args[0], args[2]
+        _, parents, scored = (float(c) for c in out[2].double().sum(0))
+        d = rows.shape[1]
+        n_bytes = (parents * graph.shape[1] * graph.element_size()
+                   + scored * (d * rows.element_size() + 4) + nbytes(*args[3:7], *out))
+        return bound(2.0 * scored * d, "fp32", n_bytes)
     raise KeyError(name)
 
 

@@ -7,24 +7,29 @@ search_width=1, max_iterations auto.
 
   * build = ``knn_graph`` (exact self-search, partitioned (exact within each
     cluster), nn_descent or IVF-PQ + refine) followed by ``graph_core.optimize``.
-  * search = a beam search over a chunk of queries at a time, in PyTorch
-    operations: per query an itopk list sorted by distance (ids carry an
-    explored flag in bit 30), each step expands the ``search_width`` best
-    unexplored parents, dedups their children against the list, the visited
-    ring and each other by dense compares, scores them with one batched
-    product and merges them by a stable sort. The loop runs until no list
-    has an unexplored finite entry (one host sync per step) or the
-    iteration budget ends.
+  * search = a beam search over a chunk of queries at a time: per query an
+    itopk list sorted by distance (ids carry an explored flag in bit 30),
+    each step expands the ``search_width`` best unexplored parents, dedups
+    their children against the list, the visited ring and each other,
+    scores them and merges them as a stable sort would, until no list has
+    an unexplored finite entry or the iteration budget ends. On the card a
+    chunk of raw rows within the kernel's limits walks in one launch of
+    ``ops.cagra_beam`` (one block a query); every other chunk runs the
+    PyTorch loop ``_beam_loop`` (dense compares, one batched product, a
+    stable sort and one host sync a step), the kernel's plain twin.
   * filtering: filtered nodes route the search but are not returned.
   * stage spans (recorded only under a profiler capture, ``utils/tracing``):
     ``cagra::seeds`` (a chunk's host draw and its copy to the device) and
-    ``cagra::beam`` (a chunk's whole loop) under ``cagra::search``, which
-    counts ``queries`` and ``beam_steps`` (the steps the loops ran);
+    ``cagra::beam`` (a chunk's whole walk; the kernel counts its
+    ``beam_kernel_queries`` there) under ``cagra::search``, which counts
+    ``queries`` and ``beam_steps`` (the steps the loops ran, the most any
+    query of a chunk ran);
     ``cagra::knn_graph`` and ``cagra::optimize`` under ``cagra::build``.
   * layouts: raw rows (``Index``), VPQ codes decoded per candidate
     (``compress`` -> ``CompressedIndex``) and packed records holding each
-    node's neighbours' int8 vectors (``pack`` -> ``PackedIndex``). One loop,
-    ``_beam_search``, serves all three; a layout only scores candidates.
+    node's neighbours' int8 vectors (``pack`` -> ``PackedIndex``). One
+    search, ``_beam_search``, serves all three; a layout only scores
+    candidates, and only raw rows take the kernel.
   * more builds: ``merge`` (physical rebuild or a logical composite),
     ``build_ace`` (one partition on the device at a time) and
     ``build_iterative`` (self-search rounds from a random graph).
@@ -51,7 +56,9 @@ from cuvs_tpu_torch.neighbors import composite
 from cuvs_tpu_torch.neighbors import filters as filt
 from cuvs_tpu_torch.neighbors import graph_core, knn_graph
 from cuvs_tpu_torch.neighbors import ivf_pq as ivfpq
+from cuvs_tpu_torch.ops import cagra_beam
 from cuvs_tpu_torch.preprocessing import quantize
+from cuvs_tpu_torch.utils import tracing
 from cuvs_tpu_torch.utils.device import as_tensor as _on_device
 from cuvs_tpu_torch.utils.tracing import count, span, traced
 
@@ -376,19 +383,18 @@ def _draw_seeds(n: int, B: int, n_seeds: int, seed: int, start: int) -> torch.Te
 
 
 def _beam_search(seed_d, seeds, graph, qids, prefilter, score_children, k: int, itopk: int,
-                 search_width: int, max_iter: int, vis_size: int, metric
+                 search_width: int, max_iter: int, vis_size: int, metric, walk=None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The beam search shared by every layout, from the ``seeds`` [B, n_seeds]
     and their min-space distances ``seed_d``. ``score_children(parents [B, W],
     children [B, W * deg])`` scores the children of the expanded parents
     (invalid parents are 0 and their children -1; scores of those are
-    ignored). Returns (distances [B, k], ids [B, k] int32)."""
+    ignored). The steps run in ``_beam_loop``, or in ``walk(state_v,
+    state_id) -> (state_v, state_id, counts)`` where one is given (the card's
+    kernel, ``ops.cagra_beam``). Returns (distances [B, k], ids [B, k] int32)."""
     dev = seed_d.device
     n = graph.shape[0]
-    deg = graph.shape[1]
-    B = seed_d.shape[0]
-    L, W = itopk, search_width
-    C = W * deg  # candidates per iteration
+    L = itopk
     n_seeds = seeds.shape[1]
     # identical seeds would be returned twice: every seed equal to an earlier one is +inf
     earlier = torch.ones((n_seeds, n_seeds), dtype=torch.bool, device=dev).tril(-1)
@@ -397,47 +403,15 @@ def _beam_search(seed_d, seeds, graph, qids, prefilter, score_children, k: int, 
     # the itopk list stays sorted ascending; merges are stable key+payload sorts
     sv, so = torch.sort(seed_d, dim=1, stable=True)
     state_v, state_id = sv[:, :L], torch.gather(seeds, 1, so)[:, :L]
-    # visited ring: the last vis_size expanded ids; -2 never matches an id or -1
-    vis = torch.full((B, max(vis_size, 1)), -2, dtype=torch.int32, device=dev)
-    c_earlier = torch.ones((C, C), dtype=torch.bool, device=dev).tril(-1)
-    slots = torch.arange(W, device=dev)
-
-    def unexplored_finite(state_v, state_id):
-        return (state_id >= 0) & ((state_id & EXPLORED) == 0) & torch.isfinite(state_v)
 
     with span("cagra::beam"):
-        it = 0
-        unexplored = unexplored_finite(state_v, state_id)
-        while it < max_iter and bool(unexplored.any()):
-            raw_id = state_id & (EXPLORED - 1)
-            # the W best unexplored parents: the first W unexplored slots (cumsum rank)
-            rank = torch.cumsum(unexplored.to(torch.int32), 1)
-            sel = unexplored & (rank <= W)
-            slot = torch.where(sel, rank - 1, W).long()
-            parent_ids = torch.full((B, W + 1), -1, dtype=torch.int32, device=dev).scatter_(
-                1, slot, torch.where(sel, raw_id, -1))[:, :W]
-            parent_valid = parent_ids >= 0
-            state_id = torch.where(sel, state_id | EXPLORED, state_id)
-            if vis_size > 0:
-                pos = (it * W + slots) % vis_size
-                vis[:, pos] = torch.where(parent_valid, parent_ids, -2)
-
-            safe_p = torch.where(parent_valid, parent_ids, 0)
-            children = graph[safe_p.long()].reshape(B, C)
-            children = torch.where(parent_valid.repeat_interleave(deg, 1), children, -1)
-            # dedup against the itopk list, the visited ring and earlier candidates
-            invalid = (children < 0) | (children[:, :, None] == raw_id[:, None, :]).any(2)
-            invalid |= ((children[:, :, None] == children[:, None, :]) & c_earlier).any(2)
-            if vis_size > 0:
-                invalid |= (children[:, :, None] == vis[:, None, :]).any(2)
-            cand_d = torch.where(invalid, float("inf"),
-                                 score_children(safe_p, torch.clamp_min(children, 0)))
-
-            mv, order = torch.sort(torch.cat([state_v, cand_d], 1), dim=1, stable=True)
-            mid = torch.gather(torch.cat([state_id, children], 1), 1, order)
-            state_v, state_id = mv[:, :L], mid[:, :L]
-            it += 1
-            unexplored = unexplored_finite(state_v, state_id)
+        if walk is None:
+            state_v, state_id, it, _ = _beam_loop(state_v, state_id, graph, score_children, L,
+                                                  search_width, max_iter, vis_size)
+        else:
+            state_v, state_id, counts = walk(state_v, state_id)
+            # the steps the loop would run: read from the card only under a capture
+            it = int(counts[:, 0].max()) if tracing.recording() else 0
     count("beam_steps", it)
 
     raw_id = state_id & (EXPLORED - 1)
@@ -455,12 +429,75 @@ def _beam_search(seed_d, seeds, graph, qids, prefilter, score_children, k: int, 
     return out_d, out_ids
 
 
+def _beam_loop(state_v, state_id, graph, score_children, itopk: int, search_width: int,
+               max_iter: int, vis_size: int):
+    """The beam search's steps over the sorted lists (``state_v``, ``state_id``
+    [B, <= itopk], which grow to ``itopk`` entries): each expands the
+    ``search_width`` best unexplored parents, dedups their children against
+    the list, the visited ring and each other by dense compares, scores them
+    and merges them by a stable sort; until no list has an unexplored finite
+    entry (one host sync a step) or ``max_iter`` steps. Returns (state_v,
+    state_id, the steps run, counts [B, 3] int32: each query's steps,
+    expanded parents and scored children)."""
+    dev = state_v.device
+    deg = graph.shape[1]
+    B = state_v.shape[0]
+    L, W = itopk, search_width
+    C = W * deg  # candidates per iteration
+    # visited ring: the last vis_size expanded ids; -2 never matches an id or -1
+    vis = torch.full((B, max(vis_size, 1)), -2, dtype=torch.int32, device=dev)
+    c_earlier = torch.ones((C, C), dtype=torch.bool, device=dev).tril(-1)
+    slots = torch.arange(W, device=dev)
+    counts = torch.zeros((B, 3), dtype=torch.int32, device=dev)
+
+    def unexplored_finite(state_v, state_id):
+        return (state_id >= 0) & ((state_id & EXPLORED) == 0) & torch.isfinite(state_v)
+
+    it = 0
+    unexplored = unexplored_finite(state_v, state_id)
+    while it < max_iter and bool(unexplored.any()):
+        raw_id = state_id & (EXPLORED - 1)
+        # the W best unexplored parents: the first W unexplored slots (cumsum rank)
+        rank = torch.cumsum(unexplored.to(torch.int32), 1)
+        sel = unexplored & (rank <= W)
+        slot = torch.where(sel, rank - 1, W).long()
+        parent_ids = torch.full((B, W + 1), -1, dtype=torch.int32, device=dev).scatter_(
+            1, slot, torch.where(sel, raw_id, -1))[:, :W]
+        parent_valid = parent_ids >= 0
+        state_id = torch.where(sel, state_id | EXPLORED, state_id)
+        if vis_size > 0:
+            pos = (it * W + slots) % vis_size
+            vis[:, pos] = torch.where(parent_valid, parent_ids, -2)
+
+        safe_p = torch.where(parent_valid, parent_ids, 0)
+        children = graph[safe_p.long()].reshape(B, C)
+        children = torch.where(parent_valid.repeat_interleave(deg, 1), children, -1)
+        # dedup against the itopk list, the visited ring and earlier candidates
+        invalid = (children < 0) | (children[:, :, None] == raw_id[:, None, :]).any(2)
+        invalid |= ((children[:, :, None] == children[:, None, :]) & c_earlier).any(2)
+        if vis_size > 0:
+            invalid |= (children[:, :, None] == vis[:, None, :]).any(2)
+        cand_d = torch.where(invalid, float("inf"),
+                             score_children(safe_p, torch.clamp_min(children, 0)))
+        counts += torch.stack([unexplored.any(1), parent_valid.sum(1), (~invalid).sum(1)],
+                              1).to(torch.int32)
+
+        mv, order = torch.sort(torch.cat([state_v, cand_d], 1), dim=1, stable=True)
+        mid = torch.gather(torch.cat([state_id, children], 1), 1, order)
+        state_v, state_id = mv[:, :L], mid[:, :L]
+        it += 1
+        unexplored = unexplored_finite(state_v, state_id)
+    return state_v, state_id, it, counts
+
+
 def _search_chunk(data_pack, dataset_norms, graph, queries, qids, prefilter, seeds, k: int,
                   itopk: int, search_width: int, max_iter: int, vis_size: int, metric,
                   compute_dtype) -> Tuple[torch.Tensor, torch.Tensor]:
     """Beam search of one chunk of queries [B, d] from ``seeds`` [B, n_seeds]
     over raw rows or VPQ codes (``data_pack``), scoring candidates by row id.
-    Returns (distances [B, k], ids [B, k] int32)."""
+    On the card, raw rows within the kernel's limits (``cagra_beam.fits``)
+    take the kernel, one launch for the chunk's whole walk; other chunks run
+    the PyTorch loop. Returns (distances [B, k], ids [B, k] int32)."""
     qf = queries.float()
     qnorm = (qf * qf).sum(1)
     seeds = seeds.to(dataset_norms.device, torch.int32)
@@ -469,10 +506,19 @@ def _search_chunk(data_pack, dataset_norms, graph, queries, qids, prefilter, see
         return _distances_to(data_pack, dataset_norms, queries, qnorm, children, metric,
                              compute_dtype)
 
+    walk = None
+    if (graph.is_cuda and seeds.shape[1] >= itopk
+            and cagra_beam.fits(data_pack, graph, itopk, search_width, vis_size, metric,
+                                compute_dtype)):
+        def walk(state_v, state_id):
+            return cagra_beam.beam_search(data_pack[0], dataset_norms, graph, queries, qnorm,
+                                          state_v, state_id, search_width, max_iter, vis_size,
+                                          metric, compute_dtype)
+
     seed_d = _distances_to(data_pack, dataset_norms, queries, qnorm, seeds, metric,
                            compute_dtype)
     return _beam_search(seed_d, seeds, graph, qids, prefilter, score, k, itopk, search_width,
-                        max_iter, vis_size, metric)
+                        max_iter, vis_size, metric, walk)
 
 
 def _search_chunk_packed(graph, child_vecs, child_norms, dataset_int8, dataset_norms, scale,

@@ -46,6 +46,8 @@ _SIGNATURES = {
                      _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
     "cuvs_pq_scan_attributes": [_I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "cuvs_pool_topk": [_P, _I, _I, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P],
+    "cuvs_cagra_beam": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                        _I, _P],
 }
 # seconds of each source's nvcc in the last build of this process (build())
 NVCC_SECONDS: dict = {}

@@ -147,6 +147,11 @@ class _Recording:
                     self.stream_ms, dict(self.counts))
 
 
+def recording() -> bool:
+    """Whether spans and counters record now (a profiler capture runs)."""
+    return _profiler_enabled()
+
+
 def span(name: str):
     """Context manager over one stage of a call (see the module's docstring)."""
     if not _profiler_enabled():

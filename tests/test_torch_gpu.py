@@ -1338,3 +1338,233 @@ def test_fused_searches_merge_through_the_pool_topk_kernel(cuda, family):
         finally:
             ops_pool.pool_topk = real
         assert torch.equal(d, pd) and torch.equal(i, pi)
+
+
+@pytest.fixture(scope="module")
+def beam_graph():
+    """Rows, queries and a CPU-built CAGRA graph (4000 x 32, degree 16) that
+    the beam-search tests search under other metrics and types too."""
+    from cuvs_tpu_torch.neighbors import cagra
+
+    x, q = _cloud(31, 4000, 32), _cloud(32, 203, 32)
+    g = cagra.build(x, intermediate_graph_degree=32, graph_degree=16, seed=0, device="cpu").graph
+    return x, q, g
+
+
+def _kernel_and_loop(cuda, monkeypatch, x, q, graph, metric="sqeuclidean",
+                     storage=torch.float32, k=10, search=None, **params):
+    """The same search on the card twice, from the same host-drawn seeds:
+    through the beam kernel, then through the PyTorch loop (the kernel's
+    predicate turned down). Returns (kernel (d, i), loop (d, i), launches of
+    the first)."""
+    from cuvs_tpu_torch.neighbors import cagra
+    from cuvs_tpu_torch.ops import cagra_beam
+
+    index = cagra.from_graph(torch.from_numpy(x), graph, metric=metric, storage_dtype=storage,
+                             device=cuda)
+    qt = torch.from_numpy(q).to(cuda)
+    search = search or (lambda ix, qq: cagra.search(ix, qq, k, seed=5, **params))
+    before = cagra_beam.LAUNCHES["cagra_beam"]
+    kernel = search(index, qt)
+    torch.cuda.synchronize()
+    launches = cagra_beam.LAUNCHES["cagra_beam"] - before
+    with monkeypatch.context() as m:
+        m.setattr(cagra_beam, "fits", lambda *a: False)
+        loop = search(index, qt)
+    assert cagra_beam.LAUNCHES["cagra_beam"] == before + launches
+    return kernel, loop, launches
+
+
+def _assert_same_walk(kernel, loop):
+    """The kernel's ids are the loop's on at least 99% of (query, rank) slots
+    (a near-tie summed in another order may steer a beam elsewhere), and
+    their distances agree where the ids do."""
+    (kd, ki), (ld, li) = ((d.cpu(), i.cpu()) for d, i in (kernel, loop))
+    same = ki == li
+    assert float(same.float().mean()) >= 0.99, float(same.float().mean())
+    torch.testing.assert_close(kd[same], ld[same], rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("compute", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("storage", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("metric", ["sqeuclidean", "inner_product", "euclidean"])
+def test_cagra_beam_kernel_matches_the_loop_metrics_and_types(cuda, monkeypatch, beam_graph,
+                                                              metric, storage, compute):
+    x, q, g = beam_graph
+    kernel, loop, launches = _kernel_and_loop(cuda, monkeypatch, x, q, g, metric, storage,
+                                              itopk_size=64, compute_dtype=compute)
+    assert launches == 1
+    _assert_same_walk(kernel, loop)
+
+
+@pytest.mark.parametrize("itopk", [32, 128, 512])
+@pytest.mark.parametrize("ring", [0, -1, 16, 256])
+@pytest.mark.parametrize("width", [1, 2])
+def test_cagra_beam_kernel_matches_the_loop_shapes(cuda, monkeypatch, beam_graph, width, ring,
+                                                   itopk):
+    x, q, g = beam_graph
+    kernel, loop, launches = _kernel_and_loop(cuda, monkeypatch, x, q, g, itopk_size=itopk,
+                                              search_width=width, visited_size=ring)
+    assert launches == 1
+    _assert_same_walk(kernel, loop)
+
+
+def test_cagra_beam_kernel_launches_once_a_chunk(cuda, monkeypatch, beam_graph):
+    """Chunks of 77 (203 queries: 77, 77, 49) and two draws of seeds a slot."""
+    x, q, g = beam_graph
+    kernel, loop, launches = _kernel_and_loop(cuda, monkeypatch, x, q, g, itopk_size=48,
+                                              query_chunk=77, num_random_samplings=2)
+    assert launches == 3
+    _assert_same_walk(kernel, loop)
+
+
+def test_cagra_beam_kernel_on_a_graph_with_repeats_and_holes(cuda, monkeypatch, beam_graph):
+    """A tenth of the edges -1 and a tenth repeating another edge of the row,
+    at width 2 (children repeat within and across parents)."""
+    x, q, g = beam_graph
+    rng = np.random.default_rng(33)
+    graph = g.numpy().copy()
+    mask = rng.random(graph.shape)
+    graph[mask < 0.1] = -1
+    rep = mask > 0.9
+    graph[rep] = graph[np.nonzero(rep)[0], rng.integers(0, graph.shape[1], int(rep.sum()))]
+    kernel, loop, launches = _kernel_and_loop(cuda, monkeypatch, x, q, torch.from_numpy(graph),
+                                              itopk_size=64, search_width=2)
+    assert launches == 1
+    _assert_same_walk(kernel, loop)
+
+
+@pytest.mark.parametrize("itopk", [128, 256])
+def test_cagra_beam_kernel_with_fewer_rows_than_itopk(cuda, monkeypatch, itopk):
+    """100 rows: the seeds repeat, the lists hold +inf entries, and the
+    children that fill them out include dropped repeats."""
+    from cuvs_tpu_torch.neighbors import cagra
+
+    x, q = _cloud(34, 100, 16), _cloud(35, 50, 16)
+    g = cagra.build(x, intermediate_graph_degree=24, graph_degree=12, seed=0, device="cpu").graph
+    kernel, loop, launches = _kernel_and_loop(cuda, monkeypatch, x, q, g, itopk_size=itopk)
+    assert launches == 1
+    _assert_same_walk(kernel, loop)
+    assert torch.equal(kernel[1].cpu(), loop[1].cpu())
+
+
+def test_cagra_beam_kernel_serves_hnsw_and_vamana(cuda, monkeypatch, beam_graph):
+    from cuvs_tpu_torch.neighbors import hnsw, vamana
+
+    x, q, g = beam_graph
+    kernel, loop, launches = _kernel_and_loop(
+        cuda, monkeypatch, x, q, g, search=lambda ix, qq: hnsw.search(ix, qq, 10, ef=40))
+    assert launches == 1
+    _assert_same_walk(kernel, loop)
+    vm = vamana.build(x[:2000], device="cpu")  # -1 slots read as row 0: repeats
+
+    def search(ix, qq):
+        moved = vamana.Index(dataset=ix.dataset, graph=vm.graph.to(cuda), medoid=vm.medoid,
+                             metric=vm.metric)
+        return vamana.search(moved, qq, 10, itopk_size=64)
+
+    kernel, loop, launches = _kernel_and_loop(cuda, monkeypatch, x[:2000], q,
+                                              vm.graph.clamp_min(0), search=search)
+    assert launches == 1
+    _assert_same_walk(kernel, loop)
+
+
+def test_cagra_beam_steps_and_counters_match_the_loop(cuda, monkeypatch, beam_graph):
+    """Under a capture both routes count the loop's steps on the search's
+    span; only the kernel counts its queries."""
+    from cuvs_tpu_torch.utils import tracing
+
+    x, q, g = beam_graph
+    found = {}
+
+    def search(ix, qq):
+        from cuvs_tpu_torch.neighbors import cagra
+
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+            tracing.clear()
+            out = cagra.search(ix, qq, 10, itopk_size=128, seed=5)
+            torch.cuda.synchronize()
+        spans = tracing.spans()
+        tracing.clear()
+        found["kernel" if "kernel" not in found else "loop"] = spans
+        return out
+
+    kernel, loop, launches = _kernel_and_loop(cuda, monkeypatch, x, q, g, search=search)
+    _assert_same_walk(kernel, loop)
+    k_spans, l_spans = found["kernel"], found["loop"]
+    assert [s.name for s in k_spans] == [s.name for s in l_spans] == \
+        ["cagra::search", "cagra::seeds", "cagra::beam"]
+    assert k_spans[0].counts["beam_steps"] == l_spans[0].counts["beam_steps"] > 0
+    assert k_spans[2].counts == {"beam_kernel_queries": len(q)} and l_spans[2].counts == {}
+
+
+def test_cagra_beam_kernel_counts_the_loop_walk(cuda, beam_graph):
+    """The wrapper against its plain version from the same lists: the lists,
+    and each query's steps, parents and scored children where they agree."""
+    from cuvs_tpu_torch.neighbors import cagra
+    from cuvs_tpu_torch.ops import cagra_beam
+
+    x, q, g = beam_graph
+    ix = cagra.from_graph(torch.from_numpy(x), g, device=cuda)
+    qt = torch.from_numpy(q).to(cuda)
+    qn = (qt * qt).sum(1)
+    seeds = cagra._draw_seeds(ix.size, len(q), 64, 5, 0).to(cuda)
+    d0 = cagra._distances_to(ix.data_pack, ix.dataset_norms, qt, qn, seeds, ix.metric,
+                             torch.float32)
+    repeat = ((seeds[:, :, None] == seeds[:, None, :])
+              & torch.ones((64, 64), dtype=torch.bool, device=cuda).tril(-1)).any(2)
+    v0, order = torch.sort(torch.where(repeat, float("inf"), d0), dim=1, stable=True)
+    ids0 = torch.gather(seeds, 1, order)
+    kept = (v0.clone(), ids0.clone())
+    args = (ix.dataset, ix.dataset_norms, ix.graph, qt, qn, v0, ids0, 1, 74, 128, ix.metric,
+            torch.float32)
+    kv, ki, kc = cagra_beam.beam_search(*args)
+    rv, ri, rc = cagra_beam.beam_search_reference(*args)
+    torch.cuda.synchronize()
+    same = (ki == ri).all(1)
+    assert float(same.float().mean()) >= 0.99
+    torch.testing.assert_close(kv[same], rv[same], rtol=RTOL, atol=ATOL)
+    assert torch.equal(kc[same], rc[same])
+    assert torch.equal(v0, kept[0]) and torch.equal(ids0, kept[1])  # inputs left as they were
+
+
+def test_cagra_beam_rejects_what_the_kernel_does_not_take(cuda, beam_graph):
+    from cuvs_tpu_torch.distance.pairwise import DistanceType
+    from cuvs_tpu_torch.ops import cagra_beam
+
+    x, q, g = beam_graph
+    rows = torch.from_numpy(x).to(cuda)
+    norms = (rows * rows).sum(1)
+    graph = g.to(cuda)
+    qt = torch.from_numpy(q[:4]).to(cuda)
+    qn = (qt * qt).sum(1)
+    ids = torch.arange(64, dtype=torch.int32, device=cuda).repeat(4, 1)
+    v = torch.zeros((4, 64), device=cuda)
+    l2, f32 = DistanceType.L2Expanded, torch.float32
+
+    def call(rows=rows, graph=graph, qt=qt, v=v, ids=ids, width=1, ring=0, metric=l2,
+             compute=f32):
+        return cagra_beam.beam_search(rows, norms, graph, qt, qn, v, ids, width, 10, ring,
+                                      metric, compute)
+
+    with pytest.raises(ValueError):  # f16 rows
+        call(rows=rows.half())
+    with pytest.raises(ValueError):  # queries on the host
+        call(qt=qt.cpu())
+    with pytest.raises(ValueError):  # an int64 graph
+        call(graph=graph.long())
+    with pytest.raises(ValueError):  # a cosine index
+        call(metric=DistanceType.CosineExpanded)
+    with pytest.raises(ValueError):  # itopk 513
+        call(v=torch.zeros((4, 513), device=cuda),
+             ids=torch.zeros((4, 513), dtype=torch.int32, device=cuda))
+    with pytest.raises(ValueError):  # 65 x 16 = 1040 candidates
+        call(width=65)
+    with pytest.raises(ValueError):  # a ring of 1025 slots
+        call(ring=1025)
+    wide = torch.zeros((8, 1025), device=cuda)
+    with pytest.raises(ValueError):  # d 1025
+        cagra_beam.beam_search(wide, torch.zeros(8, device=cuda),
+                               graph[:8].clamp(0, 7).contiguous(),
+                               torch.zeros((4, 1025), device=cuda), qn, v, ids.clamp(0, 7), 1,
+                               10, 0, l2, f32)

@@ -76,3 +76,31 @@ def test_pool_topk_bound_reads_each_kept_pair_row_once(offsets):
     n_bytes = kept * 256 * 4 + 2 * 6 * 4 * 4 + (6 * 4 * 4 if offsets else 0) + 6 * 20 * (4 + 8)
     assert got == {"bound_ms": pytest.approx(n_bytes / roofline.HBM_BYTES_PER_S * 1e3),
                    "bound_by": "bytes"}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cagra_beam_bound_reads_what_the_walk_counts(dtype):
+    """Each expanded parent's graph row and each scored child's row and norm,
+    once: the counts the walk returns, not the whole graph or dataset."""
+    from cuvs_tpu_torch.distance.pairwise import DistanceType
+    from cuvs_tpu_torch.ops import cagra_beam
+
+    g = torch.Generator().manual_seed(3)
+    n, d, deg, B, L = 200, 24, 6, 5, 16
+    rows = torch.randn(n, d, generator=g).to(dtype)
+    norms = rows.float().pow(2).sum(1)
+    graph = torch.randint(0, n, (n, deg), generator=g, dtype=torch.int32)
+    q = torch.randn(B, d, generator=g)
+    qn = q.pow(2).sum(1)
+    ids = torch.stack([torch.randperm(n, generator=g)[:L] for _ in range(B)]).to(torch.int32)
+    v, order = torch.sort(((rows.float()[ids.long()] - q[:, None]) ** 2).sum(2), 1)
+    ids = torch.gather(ids, 1, order)
+    args = (rows, norms, graph, q, qn, v, ids, 1, 30, 32, DistanceType.L2Expanded, torch.float32)
+    out = cagra_beam.beam_search(*args)
+    steps, parents, scored = (int(c) for c in out[2].sum(0))
+    assert 0 < steps == parents and 0 < scored < parents * deg
+    n_bytes = (parents * deg * 4 + scored * (d * rows.element_size() + 4)
+               + B * d * 4 + B * 4 + 2 * 2 * B * L * 4 + B * 3 * 4)
+    got = roofline.kernel_bound("cagra_beam", args, {}, out)
+    assert got == {"bound_ms": pytest.approx(n_bytes / roofline.HBM_BYTES_PER_S * 1e3),
+                   "bound_by": "bytes"}
