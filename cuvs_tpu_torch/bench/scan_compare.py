@@ -37,10 +37,10 @@ for ``pq_scan`` registers, local bytes, slots, blocks an SM holds, depth class
 and family). ``--ptxas`` adds every kernel's registers, stack and spills. ``--searches``
 keeps the searches whose names hold one of the substrings, and builds only
 their indexes. Then the per-batch split of each search into coarse search, pair
-grouping and windows (with the quantized searches' rotated operands, codebook
-and per-probe cluster terms), the kernel, and the pool merge, each the sum of
-CUDA-event times of its calls inside one search, meaned over ``reps`` searches,
-beside the search's own time. Prints one JSON object and writes it to
+grouping and windows (with the quantized searches' rotated operands and
+codebook), the kernel, and the pool merge (with their per-probe cluster
+terms), each the sum of CUDA-event times of its calls inside one search,
+meaned over ``reps`` searches, beside the search's own time. Prints one JSON object and writes it to
 ``--out``.
 """
 
@@ -83,14 +83,14 @@ CAGRA_LISTS, CAGRA_PROBES, CAGRA_KS = 1000, 50, (194, 258)
 PQ_WIDTHS, RQ_WIDTHS, CLI_RQ_PROBES = (4, 5, 6), (1, 2, 4, 5, 8), 10
 SMEM_BYTES_PER_CLOCK = 128  # per SM: 32 banks of 4 bytes
 
-# split phase -> the functions whose calls it sums (module, attribute)
+# split phase -> the functions whose calls it sums (module, attribute), each
+# inside the ``ivf::*`` span of its phase; none calls another of the list
 PHASES = {
     "coarse": [(ivf_common, "coarse_search")],
-    "grouping": [(nb_scan, "group_pairs_tiled"), (nb_scan, "_tile_windows"),
-                 (nb_scan, "_rotated_operands"), (nb_scan, "block_diag_codebook"),
-                 (nb_scan, "_cluster_offsets")],
+    "grouping": [(nb_scan, "_fused_tiles"), (nb_scan, "_rotated_operands"),
+                 (nb_scan, "block_diag_codebook")],
     "kernel": [(ops_scan, "fused_ivf_scan"), (ops_scan, "fused_pq_scan")],
-    "merge": [(nb_scan, "_flat_pool"), (nb_scan, "_pool_with_offsets")],
+    "merge": [(nb_scan, "_cluster_offsets"), (nb_scan, "_merge_pools")],
 }
 
 

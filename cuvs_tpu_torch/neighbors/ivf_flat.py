@@ -27,12 +27,11 @@ from cuvs_tpu_torch.distance import pairwise
 from cuvs_tpu_torch.distance.pairwise import DistanceType, normalize_metric
 from cuvs_tpu_torch.neighbors import filters as filt
 from cuvs_tpu_torch.neighbors import ivf_common as ivf
+from cuvs_tpu_torch.neighbors import ivf_scan
 from cuvs_tpu_torch.utils import tracing
 from cuvs_tpu_torch.utils.device import as_tensor as _on_device
 from cuvs_tpu_torch.utils.device import resolve_device
 
-_FUSED_METRICS = (DistanceType.L2Expanded, DistanceType.L2SqrtExpanded,
-                  DistanceType.InnerProduct)
 # elements of the unfused cluster-major scan's [C, M, W] block (256 MB of f32)
 _CM_BUDGET = 256 * 1024 * 1024 // 4
 
@@ -60,12 +59,11 @@ class IndexParams:
 class SearchParams:
     """Mirrors ivf_flat::search_params (ivf_flat.hpp:76).
 
-    ``scan_algo``: "auto" | "query_major" | "cluster_major" | "fused".
-    "fused" runs the fused scan kernel (L2/IP; other metrics go to
-    cluster_major). "auto" picks, for large batches (nq * n_probes >= 4 *
-    n_lists), fused for L2/IP queries on a CUDA device and cluster_major
-    otherwise; query_major for small ones. ``recall_target`` is accepted for
-    parity; selection is exact. ``metric_udf``: a search-time metric
+    ``scan_algo``: "auto" | "query_major" | "cluster_major" | "fused", as
+    ``ivf_scan.scan_path`` resolves it with cluster_major as the fallback:
+    "fused" runs the fused scan kernel (L2/IP); "auto" picks it for large
+    batches on a CUDA device. ``recall_target`` is accepted for parity;
+    selection is exact. ``metric_udf``: a search-time metric
     ``fn(x [m,d], y [n,d]) -> [m,n]`` (min = close), scanned by
     cluster_major for large batches and query_major otherwise."""
 
@@ -282,7 +280,7 @@ def build_streaming(slice_provider, n_slices: int, n_lists: int = 16384,
 
     ``align_dim`` pads the row width to a multiple of 128 in both modes."""
     metric = normalize_metric(metric)
-    if metric not in _FUSED_METRICS:
+    if metric not in ivf_scan.FUSED_METRICS:
         raise ValueError("build_streaming supports L2/IP metrics")
     first = slice_provider(0)
     device_mode = isinstance(first, torch.Tensor)
@@ -438,38 +436,27 @@ def search(index: Index, queries, k: int, params: Optional[SearchParams] = None,
     n_probes = min(params.n_probes, index.n_lists)
     nq = queries.shape[0]
     tracing.count("queries", nq)
-    algo = params.scan_algo
-    metric = index.metric
-    if algo not in ("auto", "query_major", "cluster_major", "fused"):
-        raise ValueError(f"scan_algo {algo!r}: auto, query_major, cluster_major or fused")
-    big = nq * n_probes >= 4 * index.n_lists
+    algo, metric = params.scan_algo, index.metric
+    fused_ok = metric in ivf_scan.FUSED_METRICS
     if params.metric_udf is not None:
-        # the fused kernel has L2/IP epilogues only
-        metric = params.metric_udf
-        if algo in ("auto", "fused"):
-            algo = "cluster_major" if big else "query_major"
-    if algo == "auto":
-        if big:
-            algo = "fused" if queries.is_cuda and metric in _FUSED_METRICS else "cluster_major"
-        else:
-            algo = "query_major"
-    if algo == "fused" and metric not in _FUSED_METRICS:
-        algo = "cluster_major"
+        # the fused kernel has L2/IP epilogues only: a UDF search is routed by
+        # its batch size alone
+        metric, fused_ok = params.metric_udf, False
+        if algo == "fused":
+            algo = "auto"
+    algo = ivf_scan.scan_path(algo, nq, n_probes, index.n_lists, fused_ok, queries.is_cuda,
+                              "cluster_major")
     if algo == "query_major":
         return _search_impl(index, queries, prefilter, int(k), int(n_probes), metric,
                             params.compute_dtype, params.recall_target)
-    from cuvs_tpu_torch.neighbors import ivf_scan
-
     qf = queries.float()
     probe_ids = ivf.coarse_search(qf, index.centers, index.center_norms, n_probes, metric,
                                   params.compute_dtype)
-    # fixed-width pair tiles: padding bounded by one partial tile per list
-    M = int(min(128, max(8, nq)))
-    n_tiles = nq * n_probes // M + min(index.n_lists, nq * n_probes) + 1
+    M, n_tiles = ivf_scan.tile_geometry(nq, n_probes, index.n_lists)
     if algo == "fused":
         return ivf_scan.cluster_major_scan_fused(
             index.sorted_data, index.sorted_norms, index.lists, qf, probe_ids, int(k), metric,
-            index.window, M, params.compute_dtype, int(n_tiles), params.recall_target,
+            index.window, M, params.compute_dtype, n_tiles, params.recall_target,
             index.q_scale, prefilter=prefilter)
     # tiles per chunk: the [C, M, W] order tensor stays within 256 MB of f32,
     # and so does a broadcast metric UDF's [C, M, W, d] block
@@ -478,4 +465,4 @@ def search(index: Index, queries, k: int, params: Optional[SearchParams] = None,
     return ivf_scan.cluster_major_scan_tiled(
         index.sorted_data, index.sorted_norms, index.lists, qf, probe_ids, prefilter, int(k),
         metric, index.window, M, int(chunk), params.compute_dtype, params.recall_target,
-        int(n_tiles), index.q_scale)
+        n_tiles, index.q_scale)

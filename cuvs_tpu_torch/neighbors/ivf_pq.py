@@ -33,6 +33,7 @@ from cuvs_tpu_torch.distance import pairwise
 from cuvs_tpu_torch.distance.pairwise import DistanceType, normalize_metric
 from cuvs_tpu_torch.neighbors import filters as filt
 from cuvs_tpu_torch.neighbors import ivf_common as ivf
+from cuvs_tpu_torch.neighbors import ivf_scan
 from cuvs_tpu_torch.utils import tracing
 from cuvs_tpu_torch.utils.device import as_tensor as _on_device
 from cuvs_tpu_torch.utils.device import resolve_device
@@ -44,8 +45,6 @@ _RES_CHUNK_BYTES = 256 << 20
 # and encoding, in elements
 _EM_BLOCK = 1 << 28
 
-_FUSED_METRICS = (DistanceType.L2Expanded, DistanceType.L2SqrtExpanded,
-                  DistanceType.InnerProduct)
 # elements of the unfused cluster-major scan's [C, M, W] block (64 MB of f32)
 _CM_BUDGET = 64 * 1024 * 1024 // 4
 
@@ -91,11 +90,10 @@ class IndexParams:
 class SearchParams:
     """Mirrors ivf_pq::search_params (ivf_pq.hpp:160-212).
 
-    ``scan_algo``: "auto" | "query_major" | "cluster_major" | "fused".
+    ``scan_algo``: "auto" | "query_major" | "cluster_major" | "fused", as
+    ``ivf_scan.scan_path`` resolves it with cluster_major as the fallback:
     "fused" runs the fused PQ scan kernel (L2/IP, per-subspace codebooks with
-    the serving layout; otherwise cluster_major). "auto" picks, for large
-    batches (nq * n_probes >= 4 * n_lists), fused where it applies on a CUDA
-    device and cluster_major otherwise; query_major for small ones.
+    the serving layout); "auto" picks it for large batches on a CUDA device.
     ``lut_dtype=torch.int8`` selects an
     int8 lookup table (the fused kernel's int8 mode, one scale per tile);
     float32/bfloat16 select its bf16 table. ``recall_target`` is accepted
@@ -322,8 +320,6 @@ def _sorted_arrays(codes_sorted: torch.Tensor, window: int, pq_centers, pq_bits:
                    serving: bool):
     """Packed list-sorted codes [n + window, words] and, with ``serving``,
     the fused scan's layout (``pack_codes_transposed``, ``decoded_norms``)."""
-    from cuvs_tpu_torch.neighbors import ivf_scan
-
     packed = bitpack.pack(codes_sorted, pq_bits)
     sorted_codes = torch.cat([packed, packed.new_zeros((window, packed.shape[1]))])
     if not serving:
@@ -449,7 +445,7 @@ def build_streaming(slice_provider, n_slices: int, n_lists: int = 16384,
     ``device`` (None: the card). ``serving_layout=False`` skips the fused
     scan's layout (then searches go through the unfused scans)."""
     metric = normalize_metric(metric)
-    if metric not in _FUSED_METRICS:
+    if metric not in ivf_scan.FUSED_METRICS:
         raise ValueError("build_streaming supports L2/IP metrics")
     dev = resolve_device(device)
     d = int(np.asarray(slice_provider(0)).shape[1])
@@ -503,8 +499,6 @@ def build_streaming(slice_provider, n_slices: int, n_lists: int = 16384,
     sorted_codes = _pack_chunked(sorted_u8, pq_bits)
     serving_codes = serving_norms = None
     if serving_layout:
-        from cuvs_tpu_torch.neighbors import ivf_scan
-
         serving_codes = _codes_t_chunked(sorted_u8)
         serving_norms = ivf_scan.decoded_norms(sorted_u8[:n], pq_centers, window, window + 128)
     del sorted_u8
@@ -629,35 +623,23 @@ def search(index: Index, queries, k: int, params: Optional[SearchParams] = None,
     nq = queries.shape[0]
     tracing.count("queries", nq)
     n_probes = min(params.n_probes, index.n_lists)
-    algo = params.scan_algo
-    if algo not in ("auto", "query_major", "cluster_major", "fused"):
-        raise ValueError(f"scan_algo {algo!r}: auto, query_major, cluster_major or fused")
     fused_ok = (index.sorted_codes_t is not None and index.codebook_gen == "per_subspace"
-                and index.metric in _FUSED_METRICS)
-    if algo == "auto":
-        if nq * n_probes >= 4 * index.n_lists:
-            algo = "fused" if fused_ok and queries.is_cuda else "cluster_major"
-        else:
-            algo = "query_major"
-    if algo == "fused" and not fused_ok:
-        algo = "cluster_major"
+                and index.metric in ivf_scan.FUSED_METRICS)
+    algo = ivf_scan.scan_path(params.scan_algo, nq, n_probes, index.n_lists, fused_ok,
+                              queries.is_cuda, "cluster_major")
     if algo == "query_major":
         qchunk = int(min(params.max_internal_batch_size, max(64, nq)))
         return _search_impl(index, queries, prefilter, int(k), int(n_probes), index.metric,
                             params.lut_dtype, qchunk, params.recall_target)
-    from cuvs_tpu_torch.neighbors import ivf_scan
-
     qf = queries.float()
     probe_ids = ivf.coarse_search(qf, index.centers, index.center_norms, n_probes,
                                   index.metric, params.compute_dtype)
     if algo == "fused":
-        M = int(min(128, max(8, nq)))
-        n_tiles = nq * n_probes // M + min(index.n_lists, nq * n_probes) + 1
+        M, n_tiles = ivf_scan.tile_geometry(nq, n_probes, index.n_lists)
         return ivf_scan.cluster_major_scan_pq_fused(
             index.sorted_codes_t, index.sorted_code_norms, index.centers_rot, index.pq_centers,
             index.rotation, index.lists, qf, probe_ids, int(k), index.metric, index.window, M,
-            int(n_tiles), params.recall_target, bin_cap=int(min(32, max(2, -(-k // 32)))),
-            book=int(index.pq_book_size), prefilter=prefilter,
+            n_tiles, params.recall_target, book=int(index.pq_book_size), prefilter=prefilter,
             fused_dtype="int8" if params.lut_dtype == torch.int8 else "bf16")
     # slots per list: the actual largest occupancy, so no pair drops
     M = min(nq, -(-int(ivf_scan.max_occupancy(probe_ids, index.n_lists)) // 8) * 8)

@@ -32,12 +32,10 @@ from cuvs_tpu_torch.distance import pairwise
 from cuvs_tpu_torch.distance.pairwise import DistanceType, normalize_metric
 from cuvs_tpu_torch.neighbors import filters as filt
 from cuvs_tpu_torch.neighbors import ivf_common as ivf
+from cuvs_tpu_torch.neighbors import ivf_scan
 from cuvs_tpu_torch.neighbors.ivf_pq import _make_rotation
 from cuvs_tpu_torch.utils.device import as_tensor as _on_device
 from cuvs_tpu_torch.utils.tracing import traced
-
-_FUSED_METRICS = (DistanceType.L2Expanded, DistanceType.L2SqrtExpanded,
-                  DistanceType.InnerProduct)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,11 +60,11 @@ class SearchParams:
     """Mirrors ivf_rabitq::search_params (ivf_rabitq.hpp:95-107).
 
     ``compute_dtype`` is the query-major scan's product type. ``scan_algo``:
-    "auto" | "query_major" | "cluster_major" | "fused". "fused" runs the fused
-    quantized-code scan kernel (L2/IP, bits <= 8; otherwise query_major).
-    "auto" picks fused for large batches (nq * n_probes >= 4 * n_lists) on a
-    CUDA device, query_major otherwise. RaBitQ has no unfused cluster-major
-    scan: "cluster_major" runs query_major, as in the reference
+    "auto" | "query_major" | "cluster_major" | "fused", as
+    ``ivf_scan.scan_path`` resolves it with query_major as the fallback:
+    "fused" runs the fused quantized-code scan kernel (L2/IP, bits <= 8);
+    "auto" picks it for large batches on a CUDA device. RaBitQ has no unfused
+    cluster-major scan: "cluster_major" runs query_major, as in the reference
     (ivf_rabitq.py:326-334). ``recall_target`` is accepted for parity;
     selection is exact."""
 
@@ -262,18 +260,9 @@ def search(index: Index, queries, k: int, params: Optional[SearchParams] = None,
     queries = torch.as_tensor(queries, device=index.device)
     nq = queries.shape[0]
     n_probes = min(params.n_probes, index.n_lists)
-    algo = params.scan_algo
-    if algo not in ("auto", "query_major", "cluster_major", "fused"):
-        raise ValueError(f"scan_algo {algo!r}: auto, query_major, cluster_major or fused")
-    fused_ok = index.sorted_codes_t is not None and index.metric in _FUSED_METRICS
-    if algo == "auto":
-        big = nq * n_probes >= 4 * index.n_lists
-        algo = "fused" if big and queries.is_cuda and fused_ok else "query_major"
-    if algo == "fused" and not fused_ok:
-        algo = "query_major"
-    if algo == "fused":
-        from cuvs_tpu_torch.neighbors import ivf_scan
-
+    fused_ok = index.sorted_codes_t is not None and index.metric in ivf_scan.FUSED_METRICS
+    if ivf_scan.scan_path(params.scan_algo, nq, n_probes, index.n_lists, fused_ok,
+                          queries.is_cuda, "query_major") == "fused":
         qf = queries.float()
         probe_ids = ivf.coarse_search(qf, index.centers, index.center_norms, n_probes,
                                       index.metric)
@@ -282,12 +271,10 @@ def search(index: Index, queries, k: int, params: Optional[SearchParams] = None,
             fa, fr = torch.zeros_like(index.sorted_fadd), 0.5 * index.sorted_frescale
         else:
             fa, fr = index.sorted_fadd, index.sorted_frescale
-        M = int(min(128, max(8, nq)))
-        n_tiles = nq * n_probes // M + min(index.n_lists, nq * n_probes) + 1
+        M, n_tiles = ivf_scan.tile_geometry(nq, n_probes, index.n_lists)
         return ivf_scan.cluster_major_scan_rabitq_fused(
             index.sorted_codes_t, fa, fr, index.centers_rot, index.rotation, index.lists, qf,
-            probe_ids, int(k), index.metric, index.window, M, int(n_tiles),
-            int(index.bits_per_dim), params.recall_target,
-            bin_cap=int(min(32, max(2, -(-k // 32)))), prefilter=prefilter)
+            probe_ids, int(k), index.metric, index.window, M, n_tiles,
+            int(index.bits_per_dim), params.recall_target, prefilter=prefilter)
     return _search_impl(index, queries, prefilter, int(k), int(n_probes), index.metric,
                         params.compute_dtype, params.recall_target)

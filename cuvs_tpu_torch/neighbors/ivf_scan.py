@@ -6,6 +6,9 @@ fused scan kernel (``ops.ivf_scan``: raw rows for IVF-Flat, packed codes for
 IVF-PQ and IVF-RaBitQ), which keeps the best ``cap`` rows per strided lane
 bin; a final top-k over each query's per-probe pools picks the result.
 
+``scan_path`` is the rule by which IVF-Flat, IVF-PQ and IVF-RaBitQ pick
+their scan, and ``tile_geometry`` sizes the pair tiles of the tiled paths.
+
 The unfused scans (``cluster_major_scan``, ``cluster_major_scan_tiled``,
 ``cluster_major_scan_pq``) score a chunk of lists or tiles by one batched
 product in PyTorch: they serve what the kernels do not (cosine, metric UDFs,
@@ -19,7 +22,7 @@ plain index. Padded arrays carried over from the reference work unchanged.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -31,6 +34,30 @@ from cuvs_tpu_torch.neighbors import ivf_common as ivf
 from cuvs_tpu_torch.ops import pool_topk as ops_pool
 from cuvs_tpu_torch.selection.select_k import topk
 from cuvs_tpu_torch.utils import tracing
+
+# the metrics the fused kernels have epilogues for
+FUSED_METRICS = (DistanceType.L2Expanded, DistanceType.L2SqrtExpanded,
+                 DistanceType.InnerProduct)
+
+
+def scan_path(algo: str, nq: int, n_probes: int, n_lists: int, fused_ok: bool, on_cuda: bool,
+              fallback: str) -> str:
+    """The scan that serves an IVF search: "query_major", "cluster_major" or
+    "fused". "auto" takes query_major for small batches (nq * n_probes < 4 *
+    n_lists), else fused where the family's ``fused_ok`` holds on a CUDA
+    device, else the family's ``fallback``; an explicit "fused" the family
+    cannot serve takes the fallback too. ``fallback`` is "cluster_major"
+    (IVF-Flat, IVF-PQ) or "query_major" (IVF-RaBitQ, which has no unfused
+    cluster-major scan)."""
+    if algo not in ("auto", "query_major", "cluster_major", "fused"):
+        raise ValueError(f"scan_algo {algo!r}: auto, query_major, cluster_major or fused")
+    if algo == "auto":
+        if nq * n_probes < 4 * n_lists:
+            return "query_major"
+        return "fused" if fused_ok and on_cuda else fallback
+    if algo == "fused" and not fused_ok:
+        return fallback
+    return algo
 
 
 def _round_window_up(window: int, n_pad: int) -> int:
@@ -87,8 +114,7 @@ def group_pairs_tiled(probe_ids: torch.Tensor, n_lists: int, m_tile: int, n_tile
       qidx:         [n_tiles, m_tile] query per slot (-1 = empty)
       pair_tile:    [nq, p] tile of each pair (n_tiles = dropped)
       pair_slot:    [nq, p] slot of each pair within its tile
-    all int32. With the callers' bound n_tiles = pairs//m_tile + n_lists + 1
-    no pair is dropped.
+    all int32. With ``tile_geometry``'s n_tiles no pair is dropped.
     """
     nq, p = probe_ids.shape
     dev = probe_ids.device
@@ -115,6 +141,15 @@ def group_pairs_tiled(probe_ids: torch.Tensor, n_lists: int, m_tile: int, n_tile
             pair_tile.reshape(nq, p).to(torch.int32), pair_slot.reshape(nq, p).to(torch.int32))
 
 
+def tile_geometry(nq: int, n_probes: int, n_lists: int) -> Tuple[int, int]:
+    """(m_tile, n_tiles) for ``group_pairs_tiled`` over nq x n_probes pairs:
+    tiles of nq slots clamped to [8, 128], and pairs // m_tile tiles plus one
+    partial tile per probed list plus one, so no pair is dropped."""
+    m_tile = int(min(128, max(8, nq)))
+    pairs = nq * n_probes
+    return m_tile, pairs // m_tile + min(n_lists, pairs) + 1
+
+
 def _tile_windows(tile_cluster, lists: ivf.SortedLists, n_pad: int, W_k: int):
     """Per-tile window: (list id clamped into range, 128-row aligned start
     clamped to the array, first valid window position, list size; 0 for an
@@ -125,6 +160,41 @@ def _tile_windows(tile_cluster, lists: ivf.SortedLists, n_pad: int, W_k: int):
     al = torch.clamp_max((start // 128) * 128, ((n_pad - W_k) // 128) * 128)
     sizes = torch.where(tile_cluster >= 0, lists.sizes[safe_c], 0)
     return safe_c, al, start - al, sizes
+
+
+class _Tiles(NamedTuple):
+    """A fused search's pair tiles and their windows (``group_pairs_tiled``,
+    ``_tile_windows``), the kernel's window width ``W`` and bin cap ``cap``,
+    and its prefilter split: a ``bitset`` folds into the kernel's per-row
+    penalty, a bitmap/udf filter masks the pool after the scan (``post``)."""
+
+    qidx: torch.Tensor
+    pair_tile: torch.Tensor
+    pair_slot: torch.Tensor
+    safe_c: torch.Tensor
+    al: torch.Tensor
+    lo: torch.Tensor
+    sizes: torch.Tensor
+    W: int
+    cap: int
+    bitset: Optional[filt.Prefilter]
+    post: Optional[filt.Prefilter]
+
+
+def _fused_tiles(lists: ivf.SortedLists, probe_ids, n_pad: int, window: int, m_tile: int,
+                 n_tiles: int, k: int, bin_cap, prefilter) -> _Tiles:
+    """The plan every fused search shares (run under ``ivf::group``)."""
+    flt = None if (prefilter is None or prefilter.is_none) else prefilter
+    bitset_mode = flt is not None and flt.kind == "bitset"
+    W_k = _round_window_up(window, n_pad)
+    tile_cluster, qidx, pair_tile, pair_slot = group_pairs_tiled(
+        probe_ids, lists.offsets.shape[0], m_tile, n_tiles)
+    safe_c, al, lo, sizes = _tile_windows(tile_cluster, lists, n_pad, W_k)
+    # strided lane bins: every window exposes 128 bins, so cap 2 covers
+    # k <= ~32 with negligible collision loss
+    cap = int(bin_cap) if bin_cap else int(min(32, max(2, -(-k // 32))))
+    return _Tiles(qidx, pair_tile, pair_slot, safe_c, al, lo, sizes, W_k, cap,
+                  flt if bitset_mode else None, None if bitset_mode else flt)
 
 
 def cluster_major_scan_fused(sorted_data, sorted_norms, lists: ivf.SortedLists, queries_f32,
@@ -142,48 +212,46 @@ def cluster_major_scan_fused(sorted_data, sorted_norms, lists: ivf.SortedLists, 
     """
     from cuvs_tpu_torch.ops import ivf_scan as ops_ivf_scan
 
-    n_lists = lists.offsets.shape[0]
     ip = metric == DistanceType.InnerProduct
-    n_pad = sorted_data.shape[0]
-    W_k = _round_window_up(window, n_pad)
-
-    flt = None if (prefilter is None or prefilter.is_none) else prefilter
-    bitset_mode = flt is not None and flt.kind == "bitset"
-    post_mode = flt is not None and not bitset_mode
-    ip_kernel = ip
     with tracing.span("ivf::group"):
-        if bitset_mode:
+        t = _fused_tiles(lists, probe_ids, sorted_data.shape[0], window, m_tile, n_tiles, k,
+                         bin_cap, prefilter)
+        if t.bitset is not None:
             # poison filtered rows' penalty; IP has no norm term, so it runs the
-            # L2 penalty path with zero norms and order values -2 q.y, halved below
-            sorted_norms = _poisoned(flt, lists, sorted_norms, zeros=ip)
-            ip_kernel = False
-
-        tile_cluster, qidx, pair_tile, pair_slot = group_pairs_tiled(probe_ids, n_lists, m_tile,
-                                                                     n_tiles)
-        _, al, lo, sizes = _tile_windows(tile_cluster, lists, n_pad, W_k)
-
+            # L2 penalty path with zero norms and order values -2 q.y, halved
+            # in the merge
+            sorted_norms = _poisoned(t.bitset, lists, sorted_norms, zeros=ip)
         qc, _, scale2 = _flat_operands(sorted_data, queries_f32, metric, compute_dtype, q_scale)
         int8_mode = scale2 is not None
         if not int8_mode:
             scale2 = torch.ones((), dtype=torch.float32, device=qc.device)
-    # strided lane bins: every window exposes 128 bins, so cap 2 covers
-    # k <= ~32 with negligible collision loss
-    cap = int(bin_cap) if bin_cap else int(min(32, max(2, -(-k // 32))))
     with tracing.span("ivf::scan"):
         out_v, out_i = ops_ivf_scan.fused_ivf_scan(
-            sorted_data, sorted_norms, qc, qidx, al, lo, sizes, scale2, W=W_k, m_tile=m_tile,
-            ip=ip_kernel, int8_mode=int8_mode, cap=cap)
+            sorted_data, sorted_norms, qc, t.qidx, t.al, t.lo, t.sizes, scale2, W=t.W,
+            m_tile=m_tile, ip=ip and t.bitset is None, int8_mode=int8_mode, cap=t.cap)
     with tracing.span("ivf::merge"):
-        return _flat_pool(out_v, out_i, pair_tile, pair_slot, al, lists, queries_f32, k, metric,
-                          ip, cap, flt if post_mode else None, bitset_mode, overfetch)
+        return _merge_pools(out_v, out_i, t.pair_tile, t.pair_slot, t.al, lists, None, k, metric,
+                            t.cap, t.post, overfetch, _flat_l2(queries_f32),
+                            halve=ip and t.bitset is not None)
 
 
-def _pool_best(out_v, out_i, pair_tile, pair_slot, al, lists: ivf.SortedLists, offs,
-               fetch: int):
-    """The ``fetch`` best entries of each query's pool (``ops.pool_topk``)
-    and their global ids, recovered at the winners only from (window start,
-    128-slice, lane): (values [nq, fetch], ids int32, finite mask)."""
-    Fc = out_v.shape[2]
+def _merge_pools(out_v, out_i, pair_tile, pair_slot, al, lists: ivf.SortedLists, offs, k: int,
+                 metric, cap: int, post_filter, overfetch: int, l2_finish, halve: bool = False
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Postlude of the fused scans: cross-probe top-k of the tile pool (plus
+    the per-probe offsets ``offs``; None for the flat scan) by
+    ``ops.pool_topk``, and global ids, recovered at the winners only from
+    (window start, 128-slice, lane). ``post_filter`` (bitmap/udf) masks an
+    ``overfetch``x deep pool before the final cut. ``halve`` halves the
+    values first (the flat scan's bitset IP scores, -2 q.y); IP is negated;
+    L2 values go through the scan's own ``l2_finish(values, finite mask)``
+    (``_flat_l2``, ``_offsets_l2``)."""
+    nq, p = pair_tile.shape
+    ip = metric == DistanceType.InnerProduct
+    Fc = cap * 128
+    tracing.count("merge_rows", nq * p * Fc)
+    kk = min(k, p * Fc)
+    fetch = min(p * Fc, max(k * overfetch, k)) if post_filter is not None else kk
     tv, tl = ops_pool.pool_topk(out_v, pair_tile, pair_slot, offs, fetch)
     ok = torch.isfinite(tv)
     # pool column = probe j * Fc + rank r * 128 + lane; stored uint8 = slice.
@@ -193,26 +261,10 @@ def _pool_best(out_v, out_i, pair_tile, pair_slot, al, lists: ivf.SortedLists, o
     slot = torch.gather(pair_slot, 1, j).long()
     pos = al[tile] + out_i[tile, slot, c].long() * 128 + c % 128
     fi = torch.where(ok, lists.ids[torch.where(ok, pos, 0)], 0).to(torch.int32)
-    return tv, fi, ok
 
-
-def _flat_pool(out_v, out_i, pair_tile, pair_slot, al, lists: ivf.SortedLists, queries_f32,
-               k: int, metric, ip: bool, cap: int, post_filter, bitset_mode: bool,
-               overfetch: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Postlude of the flat fused scan: cross-probe top-k of the tile pool,
-    global ids, |q|^2 added (L2). ``post_filter`` (bitmap/udf) masks an
-    ``overfetch``x deep pool before the final cut."""
-    nq, p = pair_tile.shape
-    post_mode = post_filter is not None
-    Fc = cap * 128
-    tracing.count("merge_rows", nq * p * Fc)
-    kk = min(k, p * Fc)
-    fetch = min(p * Fc, max(k * overfetch, k)) if post_mode else kk
-    tv, fi, ok = _pool_best(out_v, out_i, pair_tile, pair_slot, al, lists, None, fetch)
-
-    if bitset_mode and ip:
-        tv = tv * 0.5  # scored -2 q.y through the L2 penalty path
-    if post_mode:
+    if halve:
+        tv = tv * 0.5
+    if post_filter is not None:
         qid = torch.arange(nq, device=fi.device)
         mask = filt.passes(post_filter, qid[:, None], fi)
         tv = torch.where(ok & mask, tv, float("inf"))
@@ -224,12 +276,23 @@ def _flat_pool(out_v, out_i, pair_tile, pair_slot, al, lists: ivf.SortedLists, q
     if ip:
         fv = torch.where(ok, -tv, float("-inf"))
     else:
-        qn = (queries_f32 * queries_f32).sum(1)
-        fv = ivf.postprocess_distances(torch.clamp_min(tv + qn[:, None], 0.0), metric)
+        fv = ivf.postprocess_distances(l2_finish(tv, ok), metric)
     if kk < k:
         fv = torch.nn.functional.pad(fv, (0, k - kk), value=float("-inf") if ip else float("inf"))
         fi = torch.nn.functional.pad(fi, (0, k - kk))
     return fv, fi
+
+
+def _flat_l2(queries_f32):
+    """The flat scan's L2 finish: its pool holds |y|^2 - 2 q.y, so |q|^2 is
+    added and the sum clamped at 0."""
+    return lambda tv, ok: torch.clamp_min(tv + (queries_f32 * queries_f32).sum(1)[:, None], 0.0)
+
+
+def _offsets_l2(tv, ok):
+    """The quantized scans' L2 finish: the offsets carry the query terms, and
+    only finite entries are clamped at 0."""
+    return torch.where(ok, torch.clamp_min(tv, 0.0), float("inf"))
 
 
 def block_diag_codebook(pq_centers, dp: int, dtype=torch.bfloat16) -> torch.Tensor:
@@ -307,38 +370,28 @@ def cluster_major_scan_pq_fused(codes_t, sorted_norms, centers_rot, pq_centers, 
     index's norms are never written."""
     from cuvs_tpu_torch.ops import ivf_scan as ops_ivf_scan
 
-    n_lists = lists.offsets.shape[0]
     ip = metric == DistanceType.InnerProduct
-    n_pad = codes_t.shape[1]
-    W_k = _round_window_up(window, n_pad)
-    flt = None if (prefilter is None or prefilter.is_none) else prefilter
-    bitset_mode = flt is not None and flt.kind == "bitset"
-    use_pen = bitset_mode and ip
     with tracing.span("ivf::group"):
-        tile_cluster, qidx, pair_tile, pair_slot = group_pairs_tiled(probe_ids, n_lists, m_tile,
-                                                                     n_tiles)
-        safe_c, al, lo, sizes = _tile_windows(tile_cluster, lists, n_pad, W_k)
+        t = _fused_tiles(lists, probe_ids, codes_t.shape[1], window, m_tile, n_tiles, k, bin_cap,
+                         prefilter)
         qrot, qrot_p, centers_tile, dp = _rotated_operands(queries_f32, rotation, centers_rot,
-                                                           safe_c)
+                                                           t.safe_c)
         cb_t = block_diag_codebook(pq_centers, dp)
-        if bitset_mode:
+        if t.bitset is not None:
             # IP scoring has no norm term: the norm channel carries a 0/+inf
             # filter penalty instead (the kernel's use_pen path)
-            sorted_norms = _poisoned(flt, lists, sorted_norms, zeros=ip)
-
-    cap = int(bin_cap) if bin_cap else int(min(32, max(2, -(-k // 32))))
+            sorted_norms = _poisoned(t.bitset, lists, sorted_norms, zeros=ip)
     with tracing.span("ivf::scan"):
         out_v, out_i = ops_ivf_scan.fused_pq_scan(
-            codes_t, sorted_norms, qrot_p, cb_t, centers_tile, qidx, al, lo, sizes, W=W_k,
-            m_tile=m_tile, ip=ip, cap=cap, book=book, use_pen=use_pen,
-            int8_mode=fused_dtype == "int8", pq_len=pq_centers.shape[2])
+            codes_t, sorted_norms, qrot_p, cb_t, centers_tile, t.qidx, t.al, t.lo, t.sizes,
+            W=t.W, m_tile=m_tile, ip=ip, cap=t.cap, book=book,
+            use_pen=ip and t.bitset is not None, int8_mode=fused_dtype == "int8",
+            pq_len=pq_centers.shape[2])
     with tracing.span("ivf::merge"):
         # per-(query, probe) cluster term: L2 adds |Rq - c_rot|^2, IP -q.c
         offs = _cluster_offsets(qrot, centers_rot, probe_ids, ip)
-        return _pool_with_offsets(
-            out_v, out_i, pair_tile, pair_slot, al, lists, offs, k, metric, ip, cap,
-            post_filter=flt if (flt is not None and not bitset_mode) else None,
-            overfetch=overfetch)
+        return _merge_pools(out_v, out_i, t.pair_tile, t.pair_slot, t.al, lists, offs, k, metric,
+                            t.cap, t.post, overfetch, _offsets_l2)
 
 
 def _cluster_offsets(qrot, centers_rot, probe_ids, ip: bool) -> torch.Tensor:
@@ -354,41 +407,6 @@ def _cluster_offsets(qrot, centers_rot, probe_ids, ip: bool) -> torch.Tensor:
     return qn[:, None] + cn[pids] - 2.0 * sel
 
 
-def _pool_with_offsets(out_v, out_i, pair_tile, pair_slot, al, lists: ivf.SortedLists, offs,
-                       k: int, metric, ip: bool, cap: int, post_filter=None,
-                       overfetch: int = 4) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Postlude of the quantized fused scans: cross-probe top-k of the tile
-    pool plus the per-probe offsets, global ids. Unlike the flat scan's
-    postlude it adds no |q|^2 (the offsets carry the query terms) and clamps
-    L2 at 0 only for finite entries. ``post_filter`` (bitmap/udf) masks an
-    ``overfetch``x deep pool before the final cut."""
-    nq, p = pair_tile.shape
-    Fc = cap * 128
-    tracing.count("merge_rows", nq * p * Fc)
-    kk = min(k, p * Fc)
-    fetch = min(p * Fc, max(k * overfetch, k)) if post_filter is not None else kk
-    tv, fi, ok = _pool_best(out_v, out_i, pair_tile, pair_slot, al, lists, offs, fetch)
-
-    if post_filter is not None:
-        qid = torch.arange(nq, device=fi.device)
-        mask = filt.passes(post_filter, qid[:, None], fi)
-        tv = torch.where(ok & mask, tv, float("inf"))
-        tv, srt = torch.sort(tv, dim=1, stable=True)
-        fi = torch.gather(fi, 1, srt)
-        tv, fi = tv[:, :kk], fi[:, :kk]
-        ok = torch.isfinite(tv)
-
-    if ip:
-        fv = torch.where(ok, -tv, float("-inf"))
-    else:
-        fv = ivf.postprocess_distances(torch.where(ok, torch.clamp_min(tv, 0.0), float("inf")),
-                                       metric)
-    if kk < k:
-        fv = torch.nn.functional.pad(fv, (0, k - kk), value=float("-inf") if ip else float("inf"))
-        fi = torch.nn.functional.pad(fi, (0, k - kk))
-    return fv, fi
-
-
 def cluster_major_scan_rabitq_fused(codes_t, sorted_fa, sorted_fr, centers_rot, rotation,
                                     lists: ivf.SortedLists, queries_f32, probe_ids, k: int,
                                     metric, window: int, m_tile: int, n_tiles: int, bits: int,
@@ -402,38 +420,28 @@ def cluster_major_scan_rabitq_fused(codes_t, sorted_fa, sorted_fr, centers_rot, 
     filter folds into a copy of fa (+inf on filtered rows)."""
     from cuvs_tpu_torch.ops import ivf_scan as ops_ivf_scan
 
-    n_lists = lists.offsets.shape[0]
     ip = metric == DistanceType.InnerProduct
     rot_dim = rotation.shape[0]
-    n_pad = codes_t.shape[1]
-    W_k = _round_window_up(window, n_pad)
     book = 1 << bits
-    flt = None if (prefilter is None or prefilter.is_none) else prefilter
-    bitset_mode = flt is not None and flt.kind == "bitset"
     with tracing.span("ivf::group"):
-        tile_cluster, qidx, pair_tile, pair_slot = group_pairs_tiled(probe_ids, n_lists, m_tile,
-                                                                     n_tiles)
-        safe_c, al, lo, sizes = _tile_windows(tile_cluster, lists, n_pad, W_k)
+        t = _fused_tiles(lists, probe_ids, codes_t.shape[1], window, m_tile, n_tiles, k, bin_cap,
+                         prefilter)
         qrot, qrot_p, centers_tile, dp = _rotated_operands(queries_f32, rotation, centers_rot,
-                                                           safe_c)
+                                                           t.safe_c)
         kb = -((1 << bits) - 1) / 2.0
         levels = torch.arange(book, dtype=torch.float32, device=qrot.device) + kb
         cb_t = block_diag_codebook(levels[None, :, None].expand(rot_dim, book, 1), dp)
-        if bitset_mode:  # -(fa + fr*dots) is -inf on filtered rows whatever the metric
-            sorted_fa = _poisoned(flt, lists, sorted_fa, zeros=False)
-
-    cap = int(bin_cap) if bin_cap else int(min(32, max(2, -(-k // 32))))
+        if t.bitset is not None:  # -(fa + fr*dots) is -inf on filtered rows whatever the metric
+            sorted_fa = _poisoned(t.bitset, lists, sorted_fa, zeros=False)
     with tracing.span("ivf::scan"):
         out_v, out_i = ops_ivf_scan.fused_pq_scan(
-            codes_t, sorted_fa, qrot_p, cb_t, centers_tile, qidx, al, lo, sizes, W=W_k,
-            m_tile=m_tile, ip=ip, cap=cap, book=book, bits=bits, mode="rabitq",
+            codes_t, sorted_fa, qrot_p, cb_t, centers_tile, t.qidx, t.al, t.lo, t.sizes, W=t.W,
+            m_tile=m_tile, ip=ip, cap=t.cap, book=book, bits=bits, mode="rabitq",
             sorted_fr=sorted_fr, pq_len=1)
     with tracing.span("ivf::merge"):
         offs = _cluster_offsets(qrot, centers_rot, probe_ids, ip)
-        return _pool_with_offsets(
-            out_v, out_i, pair_tile, pair_slot, al, lists, offs, k, metric, ip, cap,
-            post_filter=flt if (flt is not None and not bitset_mode) else None,
-            overfetch=overfetch)
+        return _merge_pools(out_v, out_i, t.pair_tile, t.pair_slot, t.al, lists, offs, k, metric,
+                            t.cap, t.post, overfetch, _offsets_l2)
 
 
 # ---------------------------------------------------------------------------

@@ -104,3 +104,101 @@ def test_scan_rejects_mismatched_dtypes():
             torch.zeros(1, dtype=torch.int32), torch.zeros(1, dtype=torch.int32),
             torch.zeros(1, dtype=torch.int32), 1.0, W=128, m_tile=8, ip=False,
             int8_mode=False)
+
+
+# The three families' scan-path rules as their searches wrote them before
+# ivf_scan.scan_path: (algo, large batch, fused_ok, on_cuda) -> path. A
+# "bogus" algo raised in every family before anything else.
+def _old_flat_pq(algo, big, fused_ok, on_cuda):
+    """ivf_flat.search (no metric UDF) and ivf_pq.search."""
+    if algo == "auto":
+        algo = ("fused" if fused_ok and on_cuda else "cluster_major") if big else "query_major"
+    if algo == "fused" and not fused_ok:
+        algo = "cluster_major"
+    return algo
+
+
+def _old_rabitq(algo, big, fused_ok, on_cuda):
+    """ivf_rabitq.search."""
+    if algo == "auto":
+        algo = "fused" if big and on_cuda and fused_ok else "query_major"
+    if algo == "fused" and not fused_ok:
+        algo = "query_major"
+    return algo
+
+
+def _old_flat_udf(algo, big, fused_ok, on_cuda):
+    """ivf_flat.search with a metric UDF: the fused kernel has no UDF epilogue."""
+    if algo in ("auto", "fused"):
+        return "cluster_major" if big else "query_major"
+    return algo
+
+
+# family -> (its old rule, the fallback its search passes, whether it maps a
+# metric UDF's "fused" to "auto" with fused_ok False, as ivf_flat.search does)
+OLD_RULES = {"ivf_flat": (_old_flat_pq, "cluster_major", False),
+             "ivf_pq": (_old_flat_pq, "cluster_major", False),
+             "ivf_rabitq": (_old_rabitq, "query_major", False),
+             "ivf_flat_udf": (_old_flat_udf, "cluster_major", True)}
+
+
+@pytest.mark.parametrize("family", list(OLD_RULES))
+@pytest.mark.parametrize("on_cuda", [False, True])
+@pytest.mark.parametrize("fused_ok", [False, True])
+@pytest.mark.parametrize("nq", [15, 16])  # 15 x 4 probes < 4 x 16 lists <= 16 x 4
+@pytest.mark.parametrize("algo", ["auto", "query_major", "cluster_major", "fused", "bogus"])
+def test_scan_path_is_each_familys_old_rule(algo, nq, fused_ok, on_cuda, family):
+    old, fallback, udf = OLD_RULES[family]
+    n_probes, n_lists = 4, 16
+    if udf:
+        algo, fused_ok_passed = ("auto" if algo == "fused" else algo), False
+    else:
+        fused_ok_passed = fused_ok
+    if algo == "bogus":
+        with pytest.raises(ValueError, match="scan_algo 'bogus'"):
+            ivf_scan.scan_path(algo, nq, n_probes, n_lists, fused_ok_passed, on_cuda, fallback)
+        return
+    want = old(algo, nq * n_probes >= 4 * n_lists, fused_ok, on_cuda)
+    assert ivf_scan.scan_path(algo, nq, n_probes, n_lists, fused_ok_passed, on_cuda,
+                              fallback) == want
+
+
+@pytest.mark.parametrize("nq,p,n_lists", [(1, 3, 5), (30, 5, 12), (300, 7, 4), (1000, 20, 64)])
+def test_tile_geometry_drops_no_pair(nq, p, n_lists):
+    rng = np.random.default_rng(nq + p)
+    # skewed probes: a few lists take most pairs
+    probe = torch.from_numpy(np.minimum(rng.geometric(0.3, (nq, p)) - 1,
+                                        n_lists - 1).astype(np.int32))
+    m_tile, n_tiles = ivf_scan.tile_geometry(nq, p, n_lists)
+    assert 8 <= m_tile <= 128
+    tile_cluster, _, pair_tile, _ = ivf_scan.group_pairs_tiled(probe, n_lists, m_tile, n_tiles)
+    assert bool((pair_tile < n_tiles).all())
+    assert tile_cluster.shape == (n_tiles,)
+
+
+def test_scan_compare_phases_name_what_the_fused_searches_call():
+    """bench/scan_compare.py splits a search into stages by replacing the
+    functions its PHASES name: each must exist, and a fused IVF-Flat and
+    IVF-PQ search must call every one."""
+    from cuvs_tpu_torch.bench import scan_compare
+    from cuvs_tpu_torch.neighbors import ivf_flat, ivf_pq
+
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal((1500, 32))
+                         .astype(np.float32))
+    flat = ivf_flat.build(x, n_lists=8, seed=0)
+    pq = ivf_pq.build(x, n_lists=8, pq_dim=8, pq_bits=4, seed=0)
+    named = {(phase, attr) for phase, fns in scan_compare.PHASES.items() for _, attr in fns}
+    assert all(callable(getattr(mod, attr))
+               for fns in scan_compare.PHASES.values() for mod, attr in fns)
+    called = set()
+
+    def wrap(phase, f):
+        def counted(*args, **kw):
+            called.add((phase, f.__name__))
+            return f(*args, **kw)
+        return counted
+
+    with scan_compare.patched(wrap):
+        ivf_flat.search(flat, x[:20], 5, n_probes=4, scan_algo="fused")
+        ivf_pq.search(pq, x[:20], 5, n_probes=4, scan_algo="fused")
+    assert called == named

@@ -87,7 +87,8 @@ def test_plain_pool_topk_counts_no_launch_and_caps_fetch_at_the_pool():
 
 def _earlier_flat_pool(out_v, out_i, pair_tile, pair_slot, al, lists, queries_f32, k, metric,
                        ip, cap, post_filter, bitset_mode, overfetch):
-    """``ivf_scan._flat_pool`` as it was before the pool top-k."""
+    """The flat fused scan's postlude (``ivf_scan._flat_pool``) as it was
+    before the pool top-k."""
     nq, p = pair_tile.shape
     post_mode = post_filter is not None
     Fc = cap * 128
@@ -128,7 +129,8 @@ def _earlier_flat_pool(out_v, out_i, pair_tile, pair_slot, al, lists, queries_f3
 
 def _earlier_pool_with_offsets(out_v, out_i, pair_tile, pair_slot, al, lists, offs, k, metric,
                                ip, cap, post_filter=None, overfetch=4):
-    """``ivf_scan._pool_with_offsets`` as it was before the pool top-k."""
+    """The quantized fused scans' postlude (``ivf_scan._pool_with_offsets``) as
+    it was before the pool top-k."""
     nq, p = pair_tile.shape
     Fc = cap * 128
     out_v = torch.cat([out_v, torch.full((1,) + out_v.shape[1:], float("inf"))])
@@ -192,15 +194,18 @@ def test_postludes_return_what_they_returned(offsets, postlude, kind):
     ip = metric == DistanceType.InnerProduct
     flt = _udf_filter() if post else None
     common = (t["out_v"], t["out_i"], t["pair_tile"], t["pair_slot"], t["al"], lists)
+    # the merge with each scan's finish, as cluster_major_scan_fused and the
+    # quantized fused scans call it
     if offsets:
-        got = nb_scan._pool_with_offsets(*common, t["offs"], k, metric, ip, cap,
-                                         post_filter=flt, overfetch=4)
+        got = nb_scan._merge_pools(*common, t["offs"], k, metric, cap, flt, 4,
+                                   nb_scan._offsets_l2)
         want = _earlier_pool_with_offsets(*common, t["offs"], k, metric, ip, cap,
                                           post_filter=flt, overfetch=4)
     else:
         q = torch.from_numpy(np.random.default_rng(kind).standard_normal((nq, 16))
                              .astype(np.float32))
-        got = nb_scan._flat_pool(*common, q, k, metric, ip, cap, flt, bitset_mode, 4)
+        got = nb_scan._merge_pools(*common, None, k, metric, cap, flt, 4, nb_scan._flat_l2(q),
+                                   halve=ip and bitset_mode)
         want = _earlier_flat_pool(*common, q, k, metric, ip, cap, flt, bitset_mode, 4)
     assert torch.equal(_bits(got[0]), _bits(want[0]))
     assert torch.equal(got[1], want[1])
